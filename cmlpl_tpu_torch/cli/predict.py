@@ -1,0 +1,61 @@
+"""One-shot serving CLI: classify a whole scene with BaseNet2 weights.
+
+    python -m cmlpl_tpu_torch.cli.predict --dataID 1 --weights w.npz \
+        --out map.svg
+
+Counterpart of ``cmlpl_tpu/cli/predict.py``; ``--weights`` (a JAX-layout
+npz, see :mod:`cmlpl_tpu_torch.weights`) replaces ``--checkpoint_dir``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from cmlpl_tpu_torch.cli._common import (base_parser, build_model, logits_fn,
+                                         report_accuracy)
+from cmlpl_tpu_torch.data.prep import prepare_scene
+from cmlpl_tpu_torch.data.splits import generate_splits
+from cmlpl_tpu_torch.device import resolve_device
+from cmlpl_tpu_torch.eval.inference import ScenePredictor
+from cmlpl_tpu_torch.eval.metrics import cal_accuracy
+from cmlpl_tpu_torch.eval.visualize import save_class_map
+from cmlpl_tpu_torch.registry import get_dataset
+
+
+def main(argv=None):
+    p = base_parser()
+    p.add_argument("--out", type=str, default="classification_map.svg")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+
+    spec = get_dataset(args.dataID)
+    scene = prepare_scene(spec, root=args.data_root, patch_size=args.w,
+                          n_pc=args.n_PC, device=device)
+    model = build_model(args, spec, device)
+    predictor = ScenePredictor(
+        logits_fn(model), patch_size=args.w, cols=scene.cols,
+        tile=args.val_batch_size, gather=args.eval_gather)
+    t0 = time.perf_counter()
+    pred = predictor(scene)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"classified {scene.num_pixels} pixels in "
+          f"{time.perf_counter() - t0:.3f}s")
+
+    save_class_map(args.out, pred + 1, spec, rows=scene.rows,
+                   cols=scene.cols)
+    print(f"wrote {args.out}")
+
+    # if ground truth exists, also report test-split accuracy
+    if scene.labels.max() > 0:
+        splits = generate_splits(scene.labels, num_label=args.num_label)
+        acc = cal_accuracy(pred[splits.test],
+                           scene.labels[splits.test] - 1)
+        report_accuracy("weights", acc)
+    return pred
+
+
+if __name__ == "__main__":
+    main()

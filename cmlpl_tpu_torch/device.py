@@ -1,0 +1,32 @@
+"""Device and numeric-precision selection.
+
+The port runs on the CUDA card unless the caller asks for the CPU: there
+is no silent CPU fallback when CUDA is missing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(name=None) -> torch.device:
+    """``None`` or ``"cuda"`` -> the current CUDA device, raising if CUDA is
+    absent; ``"cpu"`` (or any explicit device) is taken as given."""
+    dev = torch.device("cuda" if name is None else name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (--device cpu) to run "
+            "on the CPU")
+    return dev
+
+
+def set_compute_precision(compute_dtype: str) -> None:
+    """Set TF32 for cuDNN convolutions and cuBLAS matmuls from the model's
+    compute dtype.  cuDNN defaults to TF32 for f32 convs, so ``float32``
+    turns both off to keep f32 meaning f32; under ``bfloat16`` the layers
+    compute in bf16 and TF32 is allowed."""
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    tf32 = compute_dtype == "bfloat16"
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library lands in ``cmlpl_tpu_torch/_build/`` (git-ignored), named by a
+hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  Nothing is built at import time: the first
+call of :func:`library` builds, later calls return the loaded library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# (cube, idx, out, batch, cube_rows, cube_cols, channels, cols, w, stream)
+# -> cudaError_t
+_GATHER = ((_P, _P, _P, ctypes.c_int64, _I, _I, _I, _I, _I, _P), _I)
+#: C signature of every entry point: (argtypes, restype)
+SIGNATURES = {"cmlpl_patch_gather_f32": _GATHER,
+              "cmlpl_patch_gather_bf16": _GATHER}
+
+
+def sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found at {path}: the CUDA kernels "
+                           "need the CUDA toolkit (set CUDA_HOME)")
+    return path
+
+
+def _library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libcmlpl_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> tuple[str, str]:
+    """Compile the sources if their library is missing; returns the
+    library's path and the compiler's report ("" when nothing was built)."""
+    path = _library_path()
+    if os.path.exists(path):
+        return path, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cus = [s for s in sources() if s.endswith(".cu")]
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(path)
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+            _lib = lib
+        return _lib
