@@ -8,8 +8,13 @@ against its plain PyTorch version on the card and times both, then drives
 the serving path at full width: BaseNet2 at PaviaU size (610x340x103
 scene, n_PC 60, w 20, 9 classes, tiles of 512), random weights from a
 seed.  ``cli.serve`` answers four JSON requests after its warm-up and
-``cli.predict`` maps the scene with the bf16 gather.  Every phase prints
-one JSON line; the card's name and power limit, then a ``kernels`` line
+``cli.predict`` maps the scene with the bf16 gather.  Then training: both
+kernels at the training shapes (the default run's pool, B = 128 a step),
+three steps on the card against the CPU, ``cli.train`` with the default
+20-epoch schedule and its pool gather (its net B weights then served), one
+epoch with each per-step kernel gather, and the OA of 12 seeds against the
+reference's (``docs/cmlpl_ref_seeds_r4.json``).  Every phase prints one
+JSON line; the card's name and power limit, then a ``kernels`` line
 (launches on the main path, error, times and bounds) come before the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
 script exits non-zero without that line; so it does without CUDA.
@@ -17,9 +22,12 @@ script exits non-zero without that line; so it does without CUDA.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -33,6 +41,27 @@ SEED = 0
 DATA_ID, N_PC, W, TILE = 1, 60, 20, 512     # PaviaU width
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 TIMING_ROUNDS = 3                           # passes over a map's tiles
+TRAIN_EPOCHS = 20                           # the default schedule
+# card vs CPU, 3 training steps: cuDNN and oneDNN sum the convolutions in
+# other orders, so the losses agree to about 1e-6 of their size, and the
+# first step's gradients (same params, same inputs) to a small part of each
+# tensor's largest.  Adam then divides each gradient by its own RMS, so a
+# weight whose gradient RMS is within ILL_CONDITIONED times its tensor's
+# largest card-vs-CPU gradient difference takes a step whose size is set
+# by rounding, up to lr = 5e-4 a step, on either side: such weights are
+# held only to that bound.  Their steps move every later gradient a little,
+# so the others (their gradients agree to 1%) are held to half of one
+# Adam step.  At most ILL_CONDITIONED_MAX_SHARE of all weights may fall in
+# the loosely held class, so a fault that widens the gradient gap fails
+CARD_CPU_LOSS_RTOL, CARD_CPU_LOSS_ATOL = 1e-4, 1e-5
+CARD_CPU_GRAD_TOL = 1e-3             # of each tensor's largest |gradient|
+CARD_CPU_PARAM_RTOL, CARD_CPU_PARAM_ATOL = 1e-3, 2.5e-4
+ILL_CONDITIONED = 100.0
+ILL_CONDITIONED_MAX_SHARE = 1e-4
+# mean OA points from the reference's: cuDNN's weight-gradient sums change
+# order from run to run, so a correct port's seeds wander; a fault in the
+# algorithm moves OA by far more
+AB_MAX_DIFF = 3.0
 
 
 class CheckFailed(RuntimeError):
@@ -123,7 +152,7 @@ def phase_kernels(scene, device):
     at odd w 9, w 8 and a ragged batch of 21 with ids off the scene; then
     their times over one map's tiles beside the plain version's, one
     PyTorch library call's and the bound."""
-    from cmlpl_tpu_torch.data.patches import clamped_starts, gather_patches
+    from cmlpl_tpu_torch.data.patches import gather_patches
     from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                                   gather_patches_f32)
 
@@ -171,47 +200,58 @@ def phase_kernels(scene, device):
                   "bitwise_equal": True})
 
         cube = scene.padded_pca.to(dtype).contiguous()
-        elt = cube.element_size()
-        rc = [clamped_starts(t, cols, cube.shape[0], cube.shape[1], W)
-              for t in tiles]
-        # library yardstick: every window as a view, one advanced index per
-        # tile; (B, C, w, w) viewed as (B, w, w, C)
-        windows = cube.unfold(0, W, 1).unfold(1, W, 1)
-
-        def library(r, c):
-            return windows[r, c].permute(0, 2, 3, 1)
-
-        require(torch.equal(library(*rc[0]), gather_patches(
-            cube, tiles[0], cols=cols, w=W)), f"{name}: library call differs")
-        ms = cuda_ms(lambda t: wrapper(cube, t, cols=cols, w=W),
-                     [(t,) for t in tiles])
-        plain_ms = cuda_ms(lambda t: gather_patches(cube, t, cols=cols, w=W),
-                           [(t,) for t in tiles])
-        library_ms = cuda_ms(library, rc)
-        device_ms = kernel_device_ms(
-            lambda t: wrapper(cube, t, cols=cols, w=W), [(t,) for t in tiles],
-            "patch_gather_kernel")
-        # bytes the function must move per tile: each output written once,
-        # the ids and each cube pixel that this tile's windows touch read once
-        touched = 0
-        for r, c in rc:
-            mask = torch.zeros(cube.shape[:2], dtype=torch.bool,
-                               device=device)
-            off = torch.arange(W, device=device)
-            mask[(r[:, None] + off)[:, :, None],
-                 (c[:, None] + off)[:, None, :]] = True
-            touched += int(mask.sum())
-        out_bytes = TILE * W * W * N_PC * elt
-        in_bytes = touched / len(tiles) * N_PC * elt + TILE * 4
-        bound_ms = (out_bytes + in_bytes) / HBM_BYTES_PER_S * 1e3
-        report[name] = {"max_abs_err": max_err, "ms": ms, "kernel_ms": ms,
-                        "device_ms": device_ms,
-                        "plain_ms": plain_ms, "library_ms": library_ms,
-                        "bound_ms": bound_ms, "bound_by": "bytes",
-                        "bytes_per_launch": out_bytes + in_bytes,
+        times = gather_times(wrapper, cube, tiles, cols)
+        report[name] = {"max_abs_err": max_err, "ms": times["ms"],
+                        "kernel_ms": times["ms"], **times,
                         "tiles_timed": len(tiles)}
         emit({"phase": "kernel_timing", "kernel": name, **report[name]})
     return report
+
+
+def gather_times(wrapper, cube, id_list, cols: int,
+                 rounds: int = TIMING_ROUNDS) -> dict:
+    """Per-launch times of a gather kernel over the id tensors of
+    ``id_list`` (one launch each) beside the plain gather's, one PyTorch
+    library call's and the byte bound."""
+    from cmlpl_tpu_torch.data.patches import clamped_starts, gather_patches
+
+    elt = cube.element_size()
+    rc = [clamped_starts(t, cols, cube.shape[0], cube.shape[1], W)
+          for t in id_list]
+    # library yardstick: every window as a view, one advanced index per
+    # call; (B, C, w, w) viewed as (B, w, w, C)
+    windows = cube.unfold(0, W, 1).unfold(1, W, 1)
+
+    def library(r, c):
+        return windows[r, c].permute(0, 2, 3, 1)
+
+    require(torch.equal(library(*rc[0]), gather_patches(
+        cube, id_list[0], cols=cols, w=W)), "library call differs")
+    args = [(t,) for t in id_list]
+    ms = cuda_ms(lambda t: wrapper(cube, t, cols=cols, w=W), args, rounds)
+    plain_ms = cuda_ms(lambda t: gather_patches(cube, t, cols=cols, w=W),
+                       args, rounds)
+    library_ms = cuda_ms(library, rc, rounds)
+    # the profiler misses a window's first launch: give it several
+    device_ms = kernel_device_ms(lambda t: wrapper(cube, t, cols=cols, w=W),
+                                 args * rounds, "patch_gather_kernel")
+    # bytes the function must move per launch: each output written once,
+    # the ids and each cube pixel that its windows touch read once
+    touched = 0
+    off = torch.arange(W, device=cube.device)
+    for r, c in rc:
+        mask = torch.zeros(cube.shape[:2], dtype=torch.bool,
+                           device=cube.device)
+        mask[(r[:, None] + off)[:, :, None],
+             (c[:, None] + off)[:, None, :]] = True
+        touched += int(mask.sum())
+    batch = id_list[0].shape[0]
+    out_bytes = batch * W * W * cube.shape[-1] * elt
+    in_bytes = touched / len(id_list) * cube.shape[-1] * elt + batch * 4
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "bound_ms": (out_bytes + in_bytes) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes_per_launch": out_bytes + in_bytes}
 
 
 class ResponseLog(io.StringIO):
@@ -244,6 +284,390 @@ def tie_safe_equal(got, want, logits_fn_, scene, what: str) -> None:
         gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
         require((gaps < 1e-5).all(),
                 f"{what}: {diff.size} pixels differ, gaps {gaps[:8]}")
+
+
+def run_cli(main_fn, argv, counter_fn):
+    """``main_fn(argv)`` with its stdout captured; returns (its result, its
+    output lines, the kernel counts as each line was written)."""
+    log = ResponseLog(counter_fn)
+    with contextlib.redirect_stdout(log):
+        result = main_fn(argv)
+    return result, log.getvalue().splitlines(), log.counts
+
+
+def line_value(lines, counts, prefix: str):
+    """(float after '== ' on the line that starts with ``prefix``, the
+    kernel counts when it was written)."""
+    for i, ln in enumerate(lines):
+        if ln.startswith(prefix):
+            return float(re.search(r"== ([0-9.]+)s", ln).group(1)), counts[i]
+    raise CheckFailed(f"no line {prefix!r} in {lines[-8:]}")
+
+
+def read_history(path: str) -> dict:
+    """--metrics_csv as column -> float array."""
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    return {k: np.array([float(r[k]) for r in rows]) for k in rows[0]}
+
+
+def default_schedule(labels, epochs: int):
+    """(E, 78, 128) labeled ids, labels and unlabeled ids of the default
+    schedule (5 labels a class, batches 128/128, ``num_unlabel`` 10,000,
+    seed 1088), drawn by the port's sampler."""
+    from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.train.driver import stack_schedule
+
+    return stack_schedule(SemiSupervisedSampler(
+        generate_splits(labels, num_label=5), labels, 128, 128, 10000,
+        seed=1088), epochs)
+
+
+def phase_train_gather(scene, labels, device):
+    """Both kernels vs the plain gather, bitwise, at the training shapes:
+    the default schedule's pool on the synthetic PaviaU scene (the port's
+    sampler, then poolify_batches) and B = 128 random ids; then the times
+    of each shape beside the plain gather's, the library call's and the
+    bound."""
+    from cmlpl_tpu_torch.data.patches import gather_patches
+    from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
+                                                  gather_patches_f32,
+                                                  poolify_batches)
+
+    li, _, ui = default_schedule(labels, TRAIN_EPOCHS)
+    pool, _, _ = poolify_batches(li, ui)
+    require(pool.shape == (10240,), f"pool of {pool.shape}")
+    pool = torch.from_numpy(pool).to(device)
+    g = torch.Generator(device=device).manual_seed(SEED + 1)
+    cols = scene.cols
+    step_ids = [torch.randint(0, scene.num_pixels, (128,), generator=g,
+                              device=device, dtype=torch.int32)
+                for _ in range(156)]
+    f32 = scene.padded_pca
+    bf16 = f32.to(torch.bfloat16)
+    report = {}
+    for name, wrapper, cube, cases in (
+            ("patch_gather_f32", gather_patches_f32, f32,
+             {"pool B=10240": [pool], "step B=128": step_ids}),
+            ("patch_gather_bf16", gather_patches_bf16, bf16,
+             {"step B=128": step_ids})):
+        for label, ids in cases.items():
+            got = wrapper(cube, ids[0], cols=cols, w=W)
+            want = gather_patches(cube, ids[0], cols=cols, w=W)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape == (ids[0].shape[0], W, W, N_PC),
+                    f"{name} {label}: shape")
+            require(torch.equal(bits(got), bits(want)),
+                    f"{name} {label}: not bitwise equal to the plain gather")
+            err = float((got.float() - want.float()).abs().max())
+            del got, want
+            times = gather_times(wrapper, cube, ids, cols, rounds=5)
+            report.setdefault(name, {})[label] = {"max_abs_err": err,
+                                                   "launches_timed": len(ids),
+                                                   **times}
+            emit({"phase": "train_gather", "kernel": name, "case": label,
+                  "bitwise_equal": True, **report[name][label]})
+    return report
+
+
+def phase_train_card_vs_cpu(cube, gt, device):
+    """Three steps from one state on the card and on the CPU, pool mode,
+    full width, noise 0, dropout 0, TF32 off: the losses, the first step's
+    gradients and the updated params of both nets agree."""
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.train.cmlpl import METRICS, CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    cfg = CMLPLConfig(noise=0.0, dropout=0.0, gather_impl="pool")
+    li, ly, ui = (a[0, :3] for a in default_schedule(
+        gt.reshape(-1).astype(np.int32), 1))
+
+    def run(dev):
+        t0 = time.perf_counter()
+        scene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                              n_pc=N_PC, device=dev)
+        trainer = CMLPLTrainer(cfg, device=dev)
+        state = trainer.init_state(SEED)
+        require(not torch.backends.cudnn.allow_tf32
+                and not torch.backends.cuda.matmul.allow_tf32, "TF32 on")
+        nets = (state.net_b, state.net_e)
+        # step 1, then steps 2-3 (the same run as one 3-step call)
+        state, m1 = trainer.train_epoch(state, scene, li[:1], ly[:1],
+                                        ui[:1], epoch=1)
+        grads = [p.grad.cpu().clone() for net in nets
+                 for p in net.model.parameters()]
+        state, m23 = trainer.train_epoch(state, scene, li[1:], ly[1:],
+                                         ui[1:], epoch=1)
+        params = [p.detach().cpu().clone() for net in nets
+                  for p in net.model.parameters()]
+        # each weight's gradient RMS: Adam's bias-corrected second moment
+        rms = [(net.opt.state[p]["exp_avg_sq"].cpu()
+                / (1 - net.opt.defaults["betas"][1]
+                   ** float(net.opt.state[p]["step"]))).sqrt()
+               for net in nets for p in net.model.parameters()]
+        return ({k: torch.cat([m1[k], m23[k]]).cpu().numpy()
+                 for k in METRICS}, grads, params, rms,
+                time.perf_counter() - t0)
+
+    (mc, gc, pc, _, card_s), (mh, gh, ph, rms, cpu_s) = (
+        run(device), run(torch.device("cpu")))
+    loss_err = {k: float(np.abs(mc[k] - mh[k]).max()) for k in METRICS}
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(gc, gh))
+    well = [r > ILL_CONDITIONED * (a - b).abs().max()
+            for r, a, b in zip(rms, gc, gh)]
+    diff = [(a - b).abs() for a, b in zip(pc, ph)]
+
+    def worst(parts):
+        return max((float(p.max()) for p in parts if p.numel()), default=0.0)
+
+    param_err = {
+        "well_conditioned": worst(d[m] for d, m in zip(diff, well)),
+        "ill_conditioned": worst(d[~m] for d, m in zip(diff, well)),
+        "ill_conditioned_weights": int(sum(int((~m).sum()) for m in well)),
+        "weights": int(sum(d.numel() for d in diff)),
+        "above_1e-5": int(sum(int((d > 1e-5).sum()) for d in diff))}
+    emit({"phase": "train_card_vs_cpu", "steps": 3, "gather": "pool",
+          "losses_card": {k: mc[k].tolist() for k in METRICS},
+          "max_abs_diff": loss_err,
+          "step1_grad_max_diff_of_tensor_max": grad_err,
+          "params_max_abs_diff": param_err,
+          "card_s": card_s, "cpu_s": cpu_s})
+    for k in METRICS:
+        require(np.all(np.isfinite(mc[k])), f"card {k} not finite")
+        require(np.allclose(mc[k], mh[k], rtol=CARD_CPU_LOSS_RTOL,
+                            atol=CARD_CPU_LOSS_ATOL),
+                f"card vs CPU {k}: {mc[k]} vs {mh[k]}")
+    require(grad_err <= CARD_CPU_GRAD_TOL,
+            f"card vs CPU step-1 gradients: {grad_err} of the tensor's max")
+    require(all(torch.allclose(a[m], b[m], rtol=CARD_CPU_PARAM_RTOL,
+                               atol=CARD_CPU_PARAM_ATOL)
+                for a, b, m in zip(pc, ph, well)),
+            f"card vs CPU params: {param_err}")
+    require(param_err["ill_conditioned"] <= 3 * 2 * cfg.lr,
+            f"card vs CPU params beyond Adam's reach: {param_err}")
+    require(param_err["ill_conditioned_weights"]
+            <= ILL_CONDITIONED_MAX_SHARE * param_err["weights"],
+            f"card vs CPU: too many weights held only to Adam's reach: "
+            f"{param_err}")
+
+
+def phase_train(tmp, cube, tscene, counter_fn):
+    """cli.train.main at full width on dataID 1 (the .mat is absent: the
+    synthetic PaviaU scene), the defaults but TRAIN_EPOCHS; then a profiled
+    window of 20 steps, and serve with the written weights."""
+    from cmlpl_tpu_torch.cli import serve
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    weights = os.path.join(tmp, "trained.npz")
+    metrics = os.path.join(tmp, "train_metrics.csv")
+    argv = ["--dataID", str(DATA_ID), "--data_root", tmp,
+            "--save_path_prefix", tmp, "--num_epochs", str(TRAIN_EPOCHS),
+            "--metrics_csv", metrics, "--weights_out", weights]
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    (acc_b, acc_e), lines, counts = run_cli(cli_train.main, argv, counter_fn)
+    total = counter_fn()
+    train_s, train_launches = line_value(lines, counts, "training time")
+    map_b_s, _ = line_value(lines, counts, "full-scene inference time (net B)")
+    map_e_s, _ = line_value(lines, counts, "full-scene inference time (net E)")
+    steps = TRAIN_EPOCHS * 78
+    require(f"({steps} steps)" in next(ln for ln in lines
+                                       if ln.startswith("training time")),
+            "step count")
+    # one pool gather per run, no bf16; each PaviaU map adds 406 launches
+    require(train_launches == (1, 0),
+            f"training launches (f32, bf16) {train_launches}")
+    require(total == (1 + 2 * 406, 0), f"launches with the maps {total}")
+    hist = read_history(metrics)
+    require(all(np.isfinite(v).all() for v in hist.values()),
+            "a training metric is not finite")
+    cls = hist["cls_loss"].reshape(TRAIN_EPOCHS, 78).mean(axis=1)
+    require(cls[-1] < cls[0], f"cls_loss by epoch {cls}")
+    require(acc_b.oa > 0.5 and acc_e.oa > 0.5,
+            f"OA net B {acc_b.oa}, net E {acc_e.oa}")
+
+    # a profiled window of 20 steps (after 5 unprofiled ones), and the same
+    # window unprofiled for the idle share
+    trainer = CMLPLTrainer(CMLPLConfig(), device=tscene.device)
+    state = trainer.init_state(SEED)
+    li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
+    trainer.train_epoch(state, tscene, li[:5], ly[:5], ui[:5], 1)
+
+    def window(lo):
+        trainer.train_epoch(state, tscene, li[lo:lo + 20],
+                            ly[lo:lo + 20], ui[lo:lo + 20], 1)
+
+    dev_ms, calls, prof_wall_ms = profiled(window, [(5,)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    window(25)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(dev_ms.values())
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
+
+    # serve one request with the written weights: the CLI's net B map
+    scene_npy = os.path.join(tmp, "paviau.npy")
+    np.save(scene_npy, cube)
+    served_svg = os.path.join(tmp, "served_trained.svg")
+    stdout = io.StringIO()
+    serve.main(["--dataID", str(DATA_ID), "--n_PC", str(N_PC), "--w", str(W),
+                "--val_batch_size", str(TILE), "--weights", weights,
+                "--data_root", tmp, "--no_warmup"],
+               stdin=io.StringIO(json.dumps({"id": "trained",
+                                             "cube": scene_npy,
+                                             "out": served_svg}) + "\n"),
+               stdout=stdout)
+    response = json.loads(stdout.getvalue().splitlines()[-1])
+    require("error" not in response, f"serve error {response}")
+    cli_svg = os.path.join(tmp, f"Experiment_{DATA_ID}", "label_5",
+                           f"CMLPL_OA_{int(acc_b.oa * 10000)}.svg")
+    with open(cli_svg, "rb") as a, open(served_svg, "rb") as b:
+        require(a.read() == b.read(), "served map != the CLI's net B map")
+
+    emit({"phase": "train", "epochs": TRAIN_EPOCHS, "steps": steps,
+          "train_s": train_s, "ms_per_step": train_s / steps * 1e3,
+          "train_patches_per_s": steps * (128 + 128) / train_s,
+          "map_s": {"net_b": map_b_s, "net_e": map_e_s},
+          "launches_training": {"gather_patches_f32": train_launches[0],
+                                "gather_patches_bf16": train_launches[1]},
+          "launches_with_maps": {"gather_patches_f32": total[0],
+                                 "gather_patches_bf16": total[1]},
+          "cls_loss_by_epoch": cls.tolist(),
+          "oa": {"net_b": acc_b.oa, "net_e": acc_e.oa},
+          "aa": {"net_b": acc_b.aa, "net_e": acc_e.aa},
+          "kappa": {"net_b": acc_b.kappa, "net_e": acc_e.kappa},
+          "served_map_equals_cli_map": True,
+          "serve_latency_s": response["latency_s"],
+          "profiled_window": {
+              "steps": 20, "wall_ms_unprofiled": window_ms,
+              "wall_ms_profiled": prof_wall_ms, "device_busy_ms": busy_ms,
+              "device_idle_share": 1 - busy_ms / window_ms,
+              "top_device_ops_ms": [
+                  {"name": k[:90], "ms": v, "calls": calls[k]}
+                  for k, v in top]},
+          "note": "synthetic PaviaU-size scene substituted for the absent "
+                  ".mat; OA says the run learns, not how well on PaviaU"})
+    return train_launches[0]
+
+
+def phase_train_pallas(tmp, counter_fn):
+    """One epoch at full width with each per-step kernel gather: 78 steps,
+    two launches each, counted over the training part.  An "auto" whose
+    pool is over the budget resolves to the f32 kernel per step."""
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    # 60,000 unlabeled: a 5.8 GB pool, over the 2 GiB budget
+    over = CMLPLTrainer(CMLPLConfig(num_unlabel=60000),
+                        device="cuda").config.gather_impl
+    require(over == "pallas", f"auto over the pool budget -> {over!r}")
+    out = {"auto_over_budget": over}
+    for gather, want in (("pallas", (156, 0)), ("pallas_bf16", (0, 156))):
+        metrics = os.path.join(tmp, f"metrics_{gather}.csv")
+        for wrapper in WRAPPERS:
+            wrapper.launches = 0
+        _, lines, counts = run_cli(cli_train.main, [
+            "--dataID", str(DATA_ID), "--data_root", tmp,
+            "--save_path_prefix", os.path.join(tmp, gather),
+            "--num_epochs", "1", "--gather_impl", gather,
+            "--metrics_csv", metrics], counter_fn)
+        train_s, launches = line_value(lines, counts, "training time")
+        require(launches == want,
+                f"{gather}: training launches (f32, bf16) {launches}")
+        hist = read_history(metrics)
+        require(all(np.isfinite(v).all() for v in hist.values()),
+                f"{gather}: a training metric is not finite")
+        out[gather] = {"train_s": train_s, "ms_per_step": train_s / 78 * 1e3,
+                       "launches_training": launches,
+                       "launches_with_maps": counter_fn(),
+                       "cls_loss_first_last": [hist["cls_loss"][0],
+                                               hist["cls_loss"][-1]]}
+    emit({"phase": "train_pallas", **out})
+    return out
+
+
+def verdict(ref: dict, ours: dict) -> dict:
+    """Mean-overlap check of ``scripts/reference_oracle.py:362-386``:
+    |mean diff| within two sigmas of the difference of means (floored at
+    1.0 OA point), pooling both nets' OA."""
+    r = np.array(ref["oa_a"] + ref["oa_b"])
+    o = np.array(ours["oa_a"] + ours["oa_b"])
+    if min(len(r), len(o)) < 2:
+        return {"ref_n": int(len(r)), "ours_n": int(len(o)),
+                "overlapping": None,
+                "error": "need >=2 OA values per side for a verdict"}
+    se = float(np.sqrt(r.var(ddof=1) / len(r) + o.var(ddof=1) / len(o)))
+    diff = float(o.mean() - r.mean())
+    band = max(2.0 * se, 1.0)
+    return {
+        "ref_mean_oa": round(float(r.mean()), 2),
+        "ref_std_oa": round(float(r.std()), 2),
+        "ours_mean_oa": round(float(o.mean()), 2),
+        "ours_std_oa": round(float(o.std()), 2),
+        "mean_diff": round(diff, 2),
+        "band": round(band, 2),
+        "overlapping": bool(abs(diff) <= band),
+    }
+
+
+def phase_train_ab(tmp):
+    """OA of cli.train vs the reference's own PyTorch code on the hard
+    synthetic scene (``docs/cmlpl_ref_seeds_r4.json``): seeds 1088..1099,
+    the oracle's scene, flags and splits."""
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.splits import generate_splits, load_splits
+
+    with open(os.path.join(ROOT, "docs", "cmlpl_ref_seeds_r4.json")) as f:
+        ref = json.load(f)["cmlpl"]["reference"]
+    # scripts/reference_oracle.py:342-344,404-409 (geometry paviau = the
+    # 9-class, 103-band synthetic spec 0)
+    cube, gt = synthetic_scene(0, rows=64, cols=48, noise_std=1.2,
+                               class_sep=0.35)
+    ab = os.path.join(tmp, "ab")
+    os.makedirs(ab)
+    scene_npz = os.path.join(ab, "scene.npz")
+    np.savez(scene_npz, cube=cube, gt=gt)
+    # the oracle materialises its splits with cli/sample_generation.py,
+    # i.e. generate_splits(gt, num_label=5); write those and read them back
+    splits = generate_splits(np.asarray(gt).reshape(-1), num_label=5)
+    for name, arr in (("train", splits.train), ("test", splits.test),
+                      ("unlabel", splits.unlabeled)):
+        np.save(os.path.join(ab, f"{name}_array.npy"), arr)
+    back = load_splits(ab)
+    require(all(np.array_equal(getattr(back, k), getattr(splits, k))
+                for k in ("train", "test", "unlabeled")), "splits differ")
+    ours = {"oa_a": [], "oa_b": [], "sec_per_seed": []}
+    for s in range(len(ref["oa_a"])):
+        t0 = time.perf_counter()
+        (acc_a, acc_b), _, _ = run_cli(cli_train.main, [
+            "--dataID", "0", "--n_PC", "60", "--w", "20",
+            "--scene_npz", scene_npz, "--splits_dir", ab,
+            "--num_label", "5", "--num_epochs", "10",
+            "--labeled_batch_size", "64", "--unlabeled_batch_size", "64",
+            "--num_unlabel", "2048", "--val_batch_size", "512",
+            "--dropout", "0.8", "--lr", "0.0005", "--print_per_batches", "0",
+            "--seed", str(1088 + s), "--save_path_prefix", ab],
+            lambda: None)
+        ours["sec_per_seed"].append(time.perf_counter() - t0)
+        ours["oa_a"].append(acc_a.oa * 100)
+        ours["oa_b"].append(acc_b.oa * 100)
+    v = verdict(ref, ours)
+    diff = (np.mean(ours["oa_a"] + ours["oa_b"])
+            - np.mean(ref["oa_a"] + ref["oa_b"]))
+    require(abs(diff) <= AB_MAX_DIFF,
+            f"mean OA {diff:+.2f} points from the reference's")
+    emit({"phase": "train_ab", "ours": ours, "verdict": v,
+          "mean_diff_unrounded": float(diff), "gate": AB_MAX_DIFF})
+    return v
 
 
 def main() -> int:
@@ -451,8 +875,8 @@ def main() -> int:
     busy_ms = sum(dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
     t0 = time.perf_counter()
-    prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W, n_pc=N_PC,
-                  device=device)
+    tscene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                           n_pc=N_PC, device=device)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
     emit({"phase": "breakdown", "map_s": map_s, "prep_s": prep_s,
@@ -468,11 +892,36 @@ def main() -> int:
                                {"name": k[:90], "ms": v, "calls": counts[k]}
                                for k, v in top]}})
 
+    # 5. training (slice 2): the kernels at the training shapes, the step on
+    # the card vs the CPU, cli.train at full width with its default pool
+    # gather, one epoch with each per-step kernel gather, the OA A/B
+    train_gather = phase_train_gather(tscene, tscene.labels, device)
+    phase_train_card_vs_cpu(cube, gt, device)
+
+    def counter_fn():
+        return (gather_patches_f32.launches, gather_patches_bf16.launches)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pool_launches = phase_train(tmp, cube, tscene, counter_fn)
+        per_step = phase_train_pallas(tmp, counter_fn)
+        phase_train_ab(tmp)
+
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"],
                 "patch_gather_bf16":
                 predict_launches["gather_patches_bf16"]}
+    launches_train = {
+        "patch_gather_f32": {
+            "cli.train default (pool), training": pool_launches,
+            "cli.train --gather_impl pallas, training":
+            per_step["pallas"]["launches_training"][0]},
+        "patch_gather_bf16": {
+            "cli.train --gather_impl pallas_bf16, training":
+            per_step["pallas_bf16"]["launches_training"][1]}}
     require(all(n > 0 for n in launches.values()),
             f"a kernel was not launched on the main path: {launches}")
+    require(all(n > 0 for d in launches_train.values() for n in d.values()),
+            f"a kernel was not launched on the training path: "
+            f"{launches_train}")
     replaces = {"patch_gather_f32": "cmlpl_tpu/ops/patch_gather.py:95",
                 "patch_gather_bf16": "cmlpl_tpu/ops/patch_gather.py:206"}
     kernels = []
@@ -480,7 +929,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": "cmlpl_tpu_torch/csrc/patch_gather.cu",
                         "replaces": replaces[name],
-                        "launches": launches[name], **rep})
+                        "launches": launches[name], **rep,
+                        "launches_train": launches_train[name],
+                        "train_shapes": train_gather[name]})
     emit({"total_s": time.perf_counter() - t_start, "card": card})
     print(card, flush=True)
     emit({"kernels": kernels})

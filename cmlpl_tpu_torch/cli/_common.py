@@ -1,25 +1,36 @@
-"""Shared CLI plumbing for the port's predict and serve entry points.
+"""Shared CLI plumbing for the port's entry points
+(``cmlpl_tpu/cli/_common.py``).
 
-The flags are the subset of ``cmlpl_tpu/cli/_common.py::base_parser``
-that predict and serve read, with the same names and defaults, plus
-``--device`` and ``--weights``.  ``--weights`` names a BaseNet2 param npz
-in the JAX layout (:mod:`cmlpl_tpu_torch.weights`); it takes the place of
-``--checkpoint_dir``, whose orbax checkpoints need JAX to read.
+The flags have the JAX package's names and defaults (reference
+``train.py:355-380``), plus ``--device`` (the CUDA card unless asked for
+the CPU).  predict and serve read :func:`base_parser` and ``--weights``, a
+BaseNet2 param npz in the JAX layout (:mod:`cmlpl_tpu_torch.weights`),
+which takes the place of ``--checkpoint_dir``, whose orbax checkpoints
+need JAX to read.  train reads :func:`train_parser`; its ``--weights_out``
+writes net B's params in that layout.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
+import os
 
 import numpy as np
 
+from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
+from cmlpl_tpu_torch.data.prep import prepare_scene
+from cmlpl_tpu_torch.data.splits import generate_splits, load_splits
 from cmlpl_tpu_torch.eval.inference import GATHERS
 from cmlpl_tpu_torch.models.basenet import BaseNet2
+from cmlpl_tpu_torch.ops.patch_gather import TRAIN_GATHERS
+from cmlpl_tpu_torch.registry import get_dataset
+from cmlpl_tpu_torch.train.state import CMLPLConfig
 from cmlpl_tpu_torch.weights import (basenet2_state_dict_from_jax,
                                      load_params_npz)
 
 
-def base_parser() -> argparse.ArgumentParser:
+def _shared_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--dataID", type=str, default="1")
     p.add_argument("--num_label", type=int, default=5)
@@ -30,7 +41,8 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_PC", type=int, default=60)
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="model compute dtype (params stay float32)")
+                   help="model compute dtype (params stay float32); "
+                        "training takes float32 only for now")
     p.add_argument("--eval_gather", type=str, default="auto",
                    choices=list(GATHERS) + ["dense"],
                    help="full-scene inference patch gather: auto = the f32 "
@@ -41,10 +53,156 @@ def base_parser() -> argparse.ArgumentParser:
                         "dense is not ported yet")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the CPU only when asked for")
+    return p
+
+
+def base_parser() -> argparse.ArgumentParser:
+    """The flags of predict and serve."""
+    p = _shared_parser()
     p.add_argument("--weights", type=str, default=None,
                    help="BaseNet2 params as a flat '<layer>/<leaf>' npz in "
                         "the JAX layout (replaces --checkpoint_dir)")
     return p
+
+
+def train_parser() -> argparse.ArgumentParser:
+    """The flags of train."""
+    p = _shared_parser()
+    p.add_argument("--save_path_prefix", type=str, default="./")
+    p.add_argument("--metrics_csv", type=str, default=None,
+                   help="write the per-step training metrics history "
+                        "(losses, accuracy, mask rate) to this CSV")
+    p.add_argument("--scene_npz", type=str, default=None,
+                   help="load the raw scene from this .npz (arrays 'cube' "
+                        "(rows, cols, bands) and 'gt' (rows, cols)) instead "
+                        "of the registry .mat files; dataID still supplies "
+                        "class count/bands/palette")
+    p.add_argument("--splits_dir", type=str, default=None,
+                   help="directory holding the reference's materialised "
+                        "train_array.npy / test_array.npy / "
+                        "unlabel_array.npy; default: regenerate the "
+                        "byte-identical splits from --num_label")
+    # train (reference train.py:361-368)
+    p.add_argument("--labeled_batch_size", type=int, default=128)
+    p.add_argument("--unlabeled_batch_size", type=int, default=128)
+    p.add_argument("--lr", type=float, default=5e-4)
+    p.add_argument("--num_epochs", type=int, default=20)
+    p.add_argument("--print_per_batches", type=int, default=10)
+    p.add_argument("--num_unlabel", type=int, default=10000)
+    p.add_argument("--thr", type=float, default=1.0)
+    p.add_argument("--alpha", type=float, default=0.95)
+    p.add_argument("--queue-batch", dest="queue_batch", type=float,
+                   default=17)
+    p.add_argument("--temperature", type=float, default=0.3)
+    p.add_argument("--noise", type=float, default=0.5)
+    p.add_argument("--seed", type=int, default=1088)
+    p.add_argument("--rng_impl", type=str, default="threefry2x32",
+                   choices=["threefry2x32", "rbg"],
+                   help="accepted for the JAX package's command lines and "
+                        "without effect: the port draws from Philox "
+                        "torch.Generators")
+    p.add_argument("--noise_impl", type=str, default="normal",
+                   choices=["normal", "binom16"],
+                   help="input-view noise sampler: binom16 = standardised "
+                        "Binomial(16,1/2) from a popcount (mean 0 / var 1 "
+                        "lattice within +/-4 sigma)")
+    p.add_argument("--noise_fused", action="store_true",
+                   help="draw each net's labeled||unlabeled noise view "
+                        "once over the concatenation (4 draws instead of "
+                        "8; same distribution and independence)")
+    p.add_argument("--input_dtype", type=str, default="compute",
+                   choices=["compute", "float32"],
+                   help="dtype of gathered patches/noise views; both keep "
+                        "them f32 while training computes in f32")
+    p.add_argument("--gather_impl", type=str, default="auto",
+                   choices=list(TRAIN_GATHERS),
+                   help="training patch gather: auto (default) = 'pool' "
+                        "when the pool fits the 2 GiB budget, else 'pallas' "
+                        "on the card and 'xla' on the CPU; "
+                        "'pool' gathers the run's unique pixels once with "
+                        "the f32 CUDA kernel and takes rows per step; "
+                        "'xla' = the plain gather per step; "
+                        "'pallas'/'pallas_bf16' = the f32/bf16 CUDA kernel "
+                        "per step")
+    p.add_argument("--num_iters", type=int, default=1,
+                   help="repeat training num_iters times and report "
+                        "mean±std (reference train.py:116 index_iter loop)")
+    p.add_argument("--weights_out", type=str, default=None,
+                   help="write net B's params as a flat '<layer>/<leaf>' "
+                        "npz in the JAX layout (what predict and serve "
+                        "read as --weights)")
+    return p
+
+
+def build_config(args, spec) -> CMLPLConfig:
+    return CMLPLConfig(
+        num_classes=spec.num_classes,
+        num_features=spec.num_bands,
+        num_label=args.num_label,
+        n_pc=args.n_PC,
+        patch_size=args.w,
+        labeled_batch=args.labeled_batch_size,
+        unlabeled_batch=args.unlabeled_batch_size,
+        val_batch=args.val_batch_size,
+        lr=args.lr,
+        num_epochs=args.num_epochs,
+        num_unlabel=args.num_unlabel,
+        thr=args.thr,
+        alpha=args.alpha,
+        queue_batch=int(args.queue_batch),
+        temperature=args.temperature,
+        dropout=args.dropout,
+        noise=args.noise,
+        seed=args.seed,
+        compute_dtype=args.compute_dtype,
+        input_dtype=args.input_dtype,
+        rng_impl=args.rng_impl,
+        noise_impl=args.noise_impl,
+        noise_fused=args.noise_fused,
+        gather_impl=args.gather_impl,
+    )
+
+
+def build_data(args, device):
+    """(spec, scene on ``device``, splits, sampler) from the flags."""
+    spec = get_dataset(args.dataID)
+    cube = gt = None
+    if args.scene_npz:
+        with np.load(args.scene_npz) as z:
+            cube, gt = z["cube"], z["gt"]
+    scene = prepare_scene(spec, root=args.data_root, patch_size=args.w,
+                          n_pc=args.n_PC, cube=cube, gt=gt, device=device)
+    if args.splits_dir:
+        splits = load_splits(args.splits_dir)
+    else:
+        splits = generate_splits(scene.labels, num_label=args.num_label)
+    sampler = SemiSupervisedSampler(
+        splits, scene.labels, args.labeled_batch_size,
+        args.unlabeled_batch_size, num_unlabel=args.num_unlabel,
+        seed=args.seed)
+    return spec, scene, splits, sampler
+
+
+def save_path(args, spec) -> str:
+    path = os.path.join(args.save_path_prefix, f"Experiment_{spec.data_id}",
+                        f"label_{args.num_label}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def save_history(args, history) -> None:
+    """--metrics_csv: the per-step metric dicts of ``fit``, one row per
+    step with the step number first (the reference only prints running
+    means, train.py:274-289)."""
+    if not args.metrics_csv or not history:
+        return
+    keys = list(history[0])
+    with open(args.metrics_csv, "w", newline="") as f:
+        out = csv.writer(f, lineterminator="\n")
+        out.writerow(["step"] + keys)
+        out.writerows([i] + [float(m[k]) for k in keys]
+                      for i, m in enumerate(history))
+    print(f"wrote {args.metrics_csv} ({len(history)} steps)")
 
 
 def build_model(args, spec, device) -> BaseNet2:

@@ -18,6 +18,7 @@ Algorithm:
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -54,4 +55,19 @@ def generate_splits(labels: np.ndarray, num_label: int = 5,
     # order deterministic for identical contents.
     unlabeled = np.array(list(set(pool) - set(train)))
     return Splits(train=train, test=test, unlabeled=unlabeled)
+
+
+def load_splits(split_dir: str) -> Splits:
+    """Load the reference's materialised split arrays
+    (``train_array.npy`` / ``test_array.npy`` / ``unlabel_array.npy``,
+    the files ``sample_generation.py:68-73`` writes), so a user can bring
+    an existing reference ``dataset/<name>/`` directory, hand-edited or
+    non-default splits included, instead of regenerating them."""
+
+    def arr(name):
+        return np.load(os.path.join(split_dir, name)).reshape(-1)
+
+    return Splits(train=arr("train_array.npy"),
+                  test=arr("test_array.npy"),
+                  unlabeled=arr("unlabel_array.npy"))
 

@@ -56,7 +56,10 @@ class BaseNet2(nn.Module):
         dt = self.compute_dtype
         return F.linear(h, layer.weight.to(dt), layer.bias.to(dt))
 
-    def forward(self, xp: torch.Tensor, x: torch.Tensor):
+    def forward(self, xp: torch.Tensor, x: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """In training mode the dropout mask is drawn from ``generator``
+        (torch's default generator when None)."""
         dt = self.compute_dtype
         h = xp.to(dt).permute(0, 3, 1, 2)   # NCHW view, channels-last strides
         h = self._conv(self.conv0, h)
@@ -71,7 +74,20 @@ class BaseNet2(nn.Module):
         y = F.relu(self._dense(self.feat_spe, x.to(dt)))
         z = torch.cat([h, y], dim=1)
         feat = l2_normalize(y.float())
-        if self.dropout > 0:
-            z = F.dropout(z, self.dropout, self.training)
+        if self.dropout > 0 and self.training:
+            z = dropout(z, self.dropout, generator)
         logits = self._dense(self.classifier, z)
         return logits.float(), feat
+
+
+def dropout(z: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: keep each element with probability
+    ``1 - rate`` (a uniform draw below it) and scale the kept ones by
+    ``1 / (1 - rate)``."""
+    keep = 1.0 - rate
+    if keep <= 0.0:
+        return torch.zeros_like(z)
+    mask = torch.rand(z.shape, generator=generator, device=z.device) < keep
+    return torch.where(mask, z / keep, torch.zeros((), dtype=z.dtype,
+                                                   device=z.device))

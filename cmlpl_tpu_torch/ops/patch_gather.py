@@ -27,6 +27,7 @@ version.  ``<wrapper>.launches`` counts the kernel launches.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from cmlpl_tpu_torch.data.patches import gather_patches as gather_patches_plain
@@ -107,3 +108,123 @@ gather_patches_bf16.launches = 0
 
 #: every kernel wrapper of the port, for resetting and reading the counts
 WRAPPERS = (gather_patches_f32, gather_patches_bf16)
+
+
+# --------------------------------------------------------------------------
+# Training gathers (``cmlpl_tpu/ops/patch_gather.py:225-381``)
+# --------------------------------------------------------------------------
+
+#: Device-memory budget for the pre-gathered training pool under gather
+#: "auto".  Kept at the JAX package's 2 GiB so that "auto" resolves exactly
+#: as it does there; at the reference schedule the pool is 10,240 rows of
+#: 20x20x60 f32, 0.98 GB, far under it and under the H100's 80 GB.
+POOL_AUTO_BUDGET_BYTES = 2 << 30
+
+#: Pool length quantum (rows).  ``poolify_batches`` pads every pool to a
+#: multiple of this; ``resolve_gather_impl`` sizes its worst case with the
+#: same constant so the two cannot drift.
+POOL_BUCKET = 512
+
+#: values of ``CMLPLConfig.gather_impl``
+TRAIN_GATHERS = ("auto", "xla", "pallas", "pallas_bf16", "pool")
+
+
+def resolve_gather_impl(gather_impl: str, *, num_unlabel: int,
+                        patch_size: int, n_pc: int,
+                        num_labeled: int = 0) -> str:
+    """Resolve the "auto" training-gather knob to a concrete impl, as the
+    JAX package does.
+
+    "auto" picks the pre-gathered pool (the same patch values as "xla")
+    whenever the pool's worst-case f32 footprint fits
+    ``POOL_AUTO_BUDGET_BYTES``, else the per-step "xla" gather.  The worst
+    case is at most ``num_unlabel`` unlabeled + ``num_labeled`` labeled
+    unique pixels, rounded up to ``POOL_BUCKET``.  Explicit impl names pass
+    through."""
+    if gather_impl != "auto":
+        return gather_impl
+    uniques = max(num_unlabel + num_labeled, 1)
+    pool_rows = -(-uniques // POOL_BUCKET) * POOL_BUCKET
+    pool_bytes = pool_rows * patch_size * patch_size * n_pc * 4
+    return "pool" if pool_bytes <= POOL_AUTO_BUDGET_BYTES else "xla"
+
+
+def resolve_train_gather(gather_impl: str, device: torch.device, *,
+                         num_unlabel: int, patch_size: int, n_pc: int,
+                         num_labeled: int = 0) -> str:
+    """The trainer's gather on ``device``: :func:`resolve_gather_impl`,
+    except that on the card an "auto" whose pool is over the budget takes
+    kernel 1 each step ("pallas", bitwise equal to "xla") instead of the
+    plain gather.  The plain gather runs on the card only when "xla" is
+    asked for by name."""
+    impl = resolve_gather_impl(gather_impl, num_unlabel=num_unlabel,
+                               patch_size=patch_size, n_pc=n_pc,
+                               num_labeled=num_labeled)
+    if gather_impl == "auto" and impl == "xla" and device.type == "cuda":
+        return "pallas"
+    return impl
+
+
+def poolify_batches(lab_idx, unl_idx, bucket: int = POOL_BUCKET):
+    """Pool-mode host prep: the unique pixel ids of a run, an epoch or a
+    step, and the batch id arrays re-expressed as positions into that pool.
+
+    The pool is padded (repeating its first id) up to a multiple of
+    ``bucket``, as in the JAX package, so the pools of the two packages
+    hold the same rows."""
+    li = np.asarray(lab_idx)
+    ui = np.asarray(unl_idx)
+    pool, inv = np.unique(np.concatenate([li.ravel(), ui.ravel()]),
+                          return_inverse=True)
+    li_pos = inv[:li.size].reshape(li.shape).astype(np.int32)
+    ui_pos = inv[li.size:].reshape(ui.shape).astype(np.int32)
+    padded_len = -(-len(pool) // bucket) * bucket
+    pool = np.concatenate(
+        [pool, np.full(padded_len - len(pool), pool[0], pool.dtype)])
+    return pool.astype(np.int32), li_pos, ui_pos
+
+
+def make_train_gather(gather_impl: str, n_pc: int):
+    """(prep_cube, gather) pair of the per-step training gather knob.
+
+    ``prep_cube(padded)`` runs once per run, epoch or step (whatever one
+    call of the trainer covers), outside the steps: identity for "xla"
+    and "pallas", the bf16 copy of the cube for "pallas_bf16".
+    ``gather(prepped, pixel_idx, cols, w)`` returns f32 (B, w, w, n_pc)
+    patches: the plain gather ("xla"), kernel 1 ("pallas") or kernel 2
+    upcast to f32 ("pallas_bf16", patch inputs bf16-quantised).  The
+    kernel needs no 128-channel pad, unlike the TPU kernel."""
+    if gather_impl == "xla":
+        def gather(prepped, pixel_idx, cols, w):
+            return gather_patches_plain(prepped, pixel_idx, cols=cols, w=w)
+
+        return (lambda padded: padded), gather
+
+    if gather_impl == "pallas":
+        def gather(prepped, pixel_idx, cols, w):
+            return gather_patches_f32(prepped, pixel_idx, cols=cols, w=w)
+
+        return (lambda padded: padded), gather
+
+    if gather_impl == "pallas_bf16":
+        def gather(cube, pixel_idx, cols, w):
+            out = gather_patches_bf16(cube, pixel_idx, cols=cols, w=w)
+            return out[..., :n_pc].float()
+
+        return (lambda padded: padded.to(torch.bfloat16)), gather
+
+    # "pool" is gather_pool's, called by the trainer once per call
+    raise ValueError(f"unknown per-step gather_impl {gather_impl!r}")
+
+
+def gather_pool(padded: torch.Tensor, spectra: torch.Tensor,
+                pool_idx: torch.Tensor, *, cols: int, w: int):
+    """The training pool: (P, w, w, C) patches of the pool's pixel ids by
+    kernel 1, and their (P, bands) spectra.
+
+    Replaces the JAX package's bulk gather of the pool
+    (``cmlpl_tpu/train/cmlpl.py:206-227,468-474``), which is XLA's
+    dynamic-slice gather there because the TPU kernel needed a 128-channel
+    pad.  The steps then take rows of the pool by position."""
+    return (gather_patches_f32(padded, pool_idx, cols=cols, w=w),
+            spectra.index_select(0, pool_idx))

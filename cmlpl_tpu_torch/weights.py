@@ -30,11 +30,56 @@ def basenet2_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
     return sd
 
 
-def init_basenet2_params(seed: int, *, n_pc: int, num_features: int,
+def basenet2_params_to_jax(state_dict) -> dict:
+    """The flax param tree (numpy f32) of a BaseNet2 ``state_dict``: the
+    inverse of :func:`basenet2_state_dict_from_jax` (conv OIHW -> HWIO,
+    dense (out, in) -> (in, out))."""
+    params = {}
+    for name in CONV_LAYERS + DENSE_LAYERS:
+        w = state_dict[f"{name}.weight"].detach().cpu().numpy()
+        k = w.transpose(2, 3, 1, 0) if name in CONV_LAYERS else w.T
+        params[name] = {
+            "kernel": np.ascontiguousarray(k, np.float32),
+            "bias": state_dict[f"{name}.bias"].detach().cpu().numpy()
+            .astype(np.float32)}
+    return params
+
+
+def cmlpl_state_from_jax(tree, trainer, run_seed: int = 0):
+    """The port's CMLPL state from a numpy copy (``jax.device_get``) of the
+    JAX package's ``CMLPLTrainState``, built by ``trainer``
+    (:class:`cmlpl_tpu_torch.train.cmlpl.CMLPLTrainer`).
+
+    Carries both nets' params; their Adam states (optax ``mu``/``nu``/
+    ``count`` -> torch ``exp_avg``/``exp_avg_sq``/``step``, under the
+    params' transposes); both queues and ``step``.  The JAX key has no
+    torch counterpart: the generator is seeded with ``run_seed``."""
+    state = trainer.new_state(tree.net_b.params, tree.net_e.params,
+                              run_seed)
+    for jnet, net in ((tree.net_b, state.net_b), (tree.net_e, state.net_e)):
+        adam = jnet.opt_state[0]     # (ScaleByAdamState, EmptyState)
+        step = torch.tensor(float(np.asarray(adam.count)))
+        mu = basenet2_state_dict_from_jax(adam.mu)
+        nu = basenet2_state_dict_from_jax(adam.nu)
+        for key, p in net.model.named_parameters():
+            net.opt.state[p] = {"step": step.clone(),
+                                "exp_avg": mu[key].to(p.device),
+                                "exp_avg_sq": nu[key].to(p.device)}
+    for jq, q in ((tree.queue_w, state.queue_w),
+                  (tree.queue_s, state.queue_s)):
+        q.feats.copy_(torch.tensor(np.asarray(jq.feats, np.float32)))
+        q.probs.copy_(torch.tensor(np.asarray(jq.probs, np.float32)))
+        q.ptr = int(np.asarray(jq.ptr))
+    state.step = int(np.asarray(tree.step))
+    return state
+
+
+def init_basenet2_params(seed, *, n_pc: int, num_features: int,
                          num_classes: int, patch_size: int = 20) -> dict:
     """Random BaseNet2 params in the JAX layout, drawn from numpy with
     torch's default init bounds, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-    weights and biases (``cmlpl_tpu/core/init.py``)."""
+    weights and biases (``cmlpl_tpu/core/init.py``).  ``seed`` is anything
+    ``numpy.random.default_rng`` takes."""
     rng = np.random.default_rng(seed)
     spatial = 64 * (patch_size // 4) ** 2
     shapes = {"conv0": (1, 1, n_pc, 64), "conv1": (3, 3, 64, 64),
