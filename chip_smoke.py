@@ -8,16 +8,19 @@ against its plain PyTorch version on the card and times both, then drives
 the serving path at full width: BaseNet2 at PaviaU size (610x340x103
 scene, n_PC 60, w 20, 9 classes, tiles of 512), random weights from a
 seed.  ``cli.serve`` answers four JSON requests after its warm-up and
-``cli.predict`` maps the scene with the bf16 gather.  Then training: both
-kernels at the training shapes (the default run's pool, B = 128 a step),
-three steps on the card against the CPU, ``cli.train`` with the default
-20-epoch schedule and its pool gather (its net B weights then served), one
-epoch with each per-step kernel gather, and the OA of 12 seeds against the
-reference's (``docs/cmlpl_ref_seeds_r4.json``).  Every phase prints one
-JSON line; the card's name and power limit, then a ``kernels`` line
-(launches on the main path, error, times and bounds) come before the last
-line, ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
-script exits non-zero without that line; so it does without CUDA.
+``cli.predict`` maps the scene with the bf16 gather; then dense
+whole-scene eval (``predict --eval_gather dense``, card vs CPU).  Then
+training: both kernels at the training shapes (the default run's pool,
+B = 128 a step); three steps of each trainer (CMLPL, CPS, CCT) on the
+card against the CPU; ``cli.train`` with the default 20-epoch schedule and
+its pool gather (its net B weights then served), one epoch with each
+per-step kernel gather; ``cli.train_cps`` and ``cli.train_cct`` with the
+default schedule; and the OA of 12 seeds of each CLI against the
+reference's (``docs/{cmlpl,cps,cct}_ref_seeds_r4.json``).  Every phase
+prints one JSON line; the card's name and power limit, then a ``kernels``
+line (launches on the main path, error, times and bounds) come before the
+last line, ``{"ok": true, "device": {...}}``.  Any failed check raises,
+and the script exits non-zero without that line; so it does without CUDA.
 """
 
 from __future__ import annotations
@@ -50,9 +53,10 @@ TRAIN_EPOCHS = 20                           # the default schedule
 # largest card-vs-CPU gradient difference takes a step whose size is set
 # by rounding, up to lr = 5e-4 a step, on either side: such weights are
 # held only to that bound.  Their steps move every later gradient a little,
-# so the others (their gradients agree to 1%) are held to half of one
-# Adam step.  At most ILL_CONDITIONED_MAX_SHARE of all weights may fall in
-# the loosely held class, so a fault that widens the gradient gap fails
+# so the others (their gradients agree to 1%) are held to half of the step
+# the weight takes (one Adam's; two for CCT's encoder).  At most
+# ILL_CONDITIONED_MAX_SHARE of all weights may need the loose bound, so a
+# fault that widens the gradient gap fails
 CARD_CPU_LOSS_RTOL, CARD_CPU_LOSS_ATOL = 1e-4, 1e-5
 CARD_CPU_GRAD_TOL = 1e-3             # of each tensor's largest |gradient|
 CARD_CPU_PARAM_RTOL, CARD_CPU_PARAM_ATOL = 1e-3, 2.5e-4
@@ -132,6 +136,17 @@ def kernel_device_ms(fn, args_list, needle: str):
     keys = [k for k in dev_ms if needle in k]
     n = sum(counts[k] for k in keys)
     return sum(dev_ms[k] for k in keys) / n if n else None
+
+
+def call_device_ms(fn, args_list):
+    """Device ms per call of ``fn(*args)``, every kernel it launches
+    counted, from the profiler, or None when it saw no device time.  Each
+    kernel's time is taken per launch and times its launches per call, so
+    a launch the profiler misses does not shorten the call."""
+    dev_ms, counts, _ = profiled(fn, args_list)
+    n = len(args_list)
+    return sum(ms / counts[k] * max(1, round(counts[k] / n))
+               for k, ms in dev_ms.items()) or None
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -235,6 +250,7 @@ def gather_times(wrapper, cube, id_list, cols: int,
     # the profiler misses a window's first launch: give it several
     device_ms = kernel_device_ms(lambda t: wrapper(cube, t, cols=cols, w=W),
                                  args * rounds, "patch_gather_kernel")
+    library_device_ms = call_device_ms(library, rc * rounds)
     # bytes the function must move per launch: each output written once,
     # the ids and each cube pixel that its windows touch read once
     touched = 0
@@ -249,7 +265,7 @@ def gather_times(wrapper, cube, id_list, cols: int,
     out_bytes = batch * W * W * cube.shape[-1] * elt
     in_bytes = touched / len(id_list) * cube.shape[-1] * elt + batch * 4
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
             "bound_ms": (out_bytes + in_bytes) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes_per_launch": out_bytes + in_bytes}
 
@@ -268,19 +284,26 @@ class ResponseLog(io.StringIO):
         return super().write(s)
 
 
-def tie_safe_equal(got, want, logits_fn_, scene, what: str) -> None:
-    """Maps from two devices may differ only where the two best logits lie
-    within 1e-5 (f32 sums in another order can swap them)."""
+def tiled_logits(logits_fn_, scene):
+    """``ids -> logits`` of the tiled map's model at those pixels."""
     from cmlpl_tpu_torch.data.patches import gather_patches, gather_spectra
 
-    diff = np.nonzero(got != want)[0]
-    if diff.size:
-        idx = torch.from_numpy(diff.astype(np.int32)).to(scene.device)
+    def at(ids):
+        idx = torch.from_numpy(ids.astype(np.int32)).to(scene.device)
         with torch.inference_mode():
-            logits = logits_fn_(
+            return logits_fn_(
                 gather_patches(scene.padded_pca, idx, cols=scene.cols, w=W),
                 gather_spectra(scene.spectra, idx))
-        top2 = logits.topk(2, dim=-1).values
+    return at
+
+
+def tie_safe_equal(got, want, logits_at, what: str) -> None:
+    """Maps from two devices may differ only where the two best logits
+    (``logits_at(pixel ids)``) lie within 1e-5 (f32 sums in another order
+    can swap them)."""
+    diff = np.nonzero(got != want)[0]
+    if diff.size:
+        top2 = logits_at(diff).topk(2, dim=-1).values
         gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
         require((gaps < 1e-5).all(),
                 f"{what}: {diff.size} pixels differ, gaps {gaps[:8]}")
@@ -371,14 +394,28 @@ def phase_train_gather(scene, labels, device):
     return report
 
 
-def phase_train_card_vs_cpu(cube, gt, device):
-    """Three steps from one state on the card and on the CPU, pool mode,
-    full width, noise 0, dropout 0, TF32 off: the losses, the first step's
-    gradients and the updated params of both nets agree."""
+def weights_and_adams(state):
+    """([(weight, the Adam that holds its moments)], the most Adams that
+    step one weight) of a trainer state: one for the two-net trainers; two
+    for CCT, whose encoder both of its Adams step."""
+    if hasattr(state, "net_b"):
+        return [(p, net.opt) for net in (state.net_b, state.net_e)
+                for p in net.model.parameters()], 1
+    base = {id(p) for p in state.opt_base.param_groups[0]["params"]}
+    return [(p, state.opt_base if id(p) in base else state.opt_aug)
+            for p in state.model.parameters()], 2
+
+
+def phase_card_vs_cpu(cube, gt, device, algo: str):
+    """Three steps of ``algo``'s trainer from one state on the card and on
+    the CPU, pool mode, full width, noise 0, dropout 0, TF32 off: the
+    losses, the first step's gradients and the updated params agree."""
     from cmlpl_tpu_torch.data.prep import prepare_scene
-    from cmlpl_tpu_torch.train.cmlpl import METRICS, CMLPLTrainer
+    from cmlpl_tpu_torch.train import CCTTrainer, CMLPLTrainer, CPSTrainer
     from cmlpl_tpu_torch.train.state import CMLPLConfig
 
+    trainer_cls = {"cmlpl": CMLPLTrainer, "cps": CPSTrainer,
+                   "cct": CCTTrainer}[algo]
     cfg = CMLPLConfig(noise=0.0, dropout=0.0, gather_impl="pool")
     li, ly, ui = (a[0, :3] for a in default_schedule(
         gt.reshape(-1).astype(np.int32), 1))
@@ -387,113 +424,129 @@ def phase_train_card_vs_cpu(cube, gt, device):
         t0 = time.perf_counter()
         scene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
                               n_pc=N_PC, device=dev)
-        trainer = CMLPLTrainer(cfg, device=dev)
+        trainer = trainer_cls(cfg, device=dev)
         state = trainer.init_state(SEED)
         require(not torch.backends.cudnn.allow_tf32
                 and not torch.backends.cuda.matmul.allow_tf32, "TF32 on")
-        nets = (state.net_b, state.net_e)
+        weights, adams = weights_and_adams(state)
         # step 1, then steps 2-3 (the same run as one 3-step call)
         state, m1 = trainer.train_epoch(state, scene, li[:1], ly[:1],
                                         ui[:1], epoch=1)
-        grads = [p.grad.cpu().clone() for net in nets
-                 for p in net.model.parameters()]
+        grads = [p.grad.cpu().clone() for p, _ in weights]
         state, m23 = trainer.train_epoch(state, scene, li[1:], ly[1:],
                                          ui[1:], epoch=1)
-        params = [p.detach().cpu().clone() for net in nets
-                  for p in net.model.parameters()]
+        params = [p.detach().cpu().clone() for p, _ in weights]
         # each weight's gradient RMS: Adam's bias-corrected second moment
-        rms = [(net.opt.state[p]["exp_avg_sq"].cpu()
-                / (1 - net.opt.defaults["betas"][1]
-                   ** float(net.opt.state[p]["step"]))).sqrt()
-               for net in nets for p in net.model.parameters()]
-        return ({k: torch.cat([m1[k], m23[k]]).cpu().numpy()
-                 for k in METRICS}, grads, params, rms,
-                time.perf_counter() - t0)
+        rms = [(opt.state[p]["exp_avg_sq"].cpu()
+                / (1 - opt.defaults["betas"][1]
+                   ** float(opt.state[p]["step"]))).sqrt()
+               for p, opt in weights]
+        return ({k: torch.cat([m1[k], m23[k]]).cpu().numpy() for k in m1},
+                grads, params, rms, adams, time.perf_counter() - t0)
 
-    (mc, gc, pc, _, card_s), (mh, gh, ph, rms, cpu_s) = (
+    (mc, gc, pc, rms_c, adams, card_s), (mh, gh, ph, rms, _, cpu_s) = (
         run(device), run(torch.device("cpu")))
-    loss_err = {k: float(np.abs(mc[k] - mh[k]).max()) for k in METRICS}
+    loss_err = {k: float(np.abs(mc[k] - mh[k]).max()) for k in mc}
     grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                    for a, b in zip(gc, gh))
-    well = [r > ILL_CONDITIONED * (a - b).abs().max()
-            for r, a, b in zip(rms, gc, gh)]
+    # weights with no gradient in any step on either side (a head's
+    # columns whose features are 0 on every row) never move: held equal
+    still = [(r == 0) & (q == 0) for r, q in zip(rms, rms_c)]
+    well = [(r > ILL_CONDITIONED * (a - b).abs().max()) | z
+            for r, a, b, z in zip(rms, gc, gh, still)]
     diff = [(a - b).abs() for a, b in zip(pc, ph)]
 
     def worst(parts):
         return max((float(p.max()) for p in parts if p.numel()), default=0.0)
 
+    # within half of the weight's step, whatever its gradient
+    tight = [(a - b).abs() <= CARD_CPU_PARAM_ATOL * adams
+             + CARD_CPU_PARAM_RTOL * b.abs() for a, b in zip(pc, ph)]
     param_err = {
         "well_conditioned": worst(d[m] for d, m in zip(diff, well)),
         "ill_conditioned": worst(d[~m] for d, m in zip(diff, well)),
         "ill_conditioned_weights": int(sum(int((~m).sum()) for m in well)),
+        "held_to_adams_reach": int(sum(int((~m & ~t).sum())
+                                       for m, t in zip(well, tight))),
+        "no_gradient_weights": int(sum(int(z.sum()) for z in still)),
+        "no_gradient_max_abs_diff": worst(d[z] for d, z in zip(diff, still)),
         "weights": int(sum(d.numel() for d in diff)),
         "above_1e-5": int(sum(int((d > 1e-5).sum()) for d in diff))}
-    emit({"phase": "train_card_vs_cpu", "steps": 3, "gather": "pool",
-          "losses_card": {k: mc[k].tolist() for k in METRICS},
+    name = "train" if algo == "cmlpl" else f"train_{algo}"
+    emit({"phase": f"{name}_card_vs_cpu", "steps": 3, "gather": "pool",
+          "losses_card": {k: mc[k].tolist() for k in mc},
           "max_abs_diff": loss_err,
           "step1_grad_max_diff_of_tensor_max": grad_err,
           "params_max_abs_diff": param_err,
           "card_s": card_s, "cpu_s": cpu_s})
-    for k in METRICS:
-        require(np.all(np.isfinite(mc[k])), f"card {k} not finite")
+    for k in mc:
+        require(np.all(np.isfinite(mc[k])), f"{algo}: card {k} not finite")
         require(np.allclose(mc[k], mh[k], rtol=CARD_CPU_LOSS_RTOL,
                             atol=CARD_CPU_LOSS_ATOL),
-                f"card vs CPU {k}: {mc[k]} vs {mh[k]}")
+                f"{algo}: card vs CPU {k}: {mc[k]} vs {mh[k]}")
     require(grad_err <= CARD_CPU_GRAD_TOL,
-            f"card vs CPU step-1 gradients: {grad_err} of the tensor's max")
-    require(all(torch.allclose(a[m], b[m], rtol=CARD_CPU_PARAM_RTOL,
-                               atol=CARD_CPU_PARAM_ATOL)
-                for a, b, m in zip(pc, ph, well)),
-            f"card vs CPU params: {param_err}")
-    require(param_err["ill_conditioned"] <= 3 * 2 * cfg.lr,
-            f"card vs CPU params beyond Adam's reach: {param_err}")
-    require(param_err["ill_conditioned_weights"]
+            f"{algo}: card vs CPU step-1 gradients: {grad_err} of the "
+            "tensor's max")
+    require(all(t[m].all() for t, m in zip(tight, well)),
+            f"{algo}: card vs CPU params: {param_err}")
+    require(param_err["no_gradient_max_abs_diff"] == 0,
+            f"{algo}: a weight with no gradient moved: {param_err}")
+    # Adam's reach: up to lr a step on either side, from each Adam that
+    # steps the weight (CCT's encoder takes two: 3 * 2 * 2 * lr)
+    require(param_err["ill_conditioned"] <= 3 * 2 * adams * cfg.lr,
+            f"{algo}: card vs CPU params beyond Adam's reach: {param_err}")
+    require(param_err["held_to_adams_reach"]
             <= ILL_CONDITIONED_MAX_SHARE * param_err["weights"],
-            f"card vs CPU: too many weights held only to Adam's reach: "
-            f"{param_err}")
+            f"{algo}: card vs CPU: too many weights held only to Adam's "
+            f"reach: {param_err}")
 
 
-def phase_train(tmp, cube, tscene, counter_fn):
-    """cli.train.main at full width on dataID 1 (the .mat is absent: the
-    synthetic PaviaU scene), the defaults but TRAIN_EPOCHS; then a profiled
-    window of 20 steps, and serve with the written weights."""
-    from cmlpl_tpu_torch.cli import serve
-    from cmlpl_tpu_torch.cli import train as cli_train
+def train_cli_run(main_fn, tmp, name: str, counter_fn, maps):
+    """``main_fn`` (a training CLI's main) at full width on dataID 1 (the
+    .mat is absent: the synthetic PaviaU scene) with the defaults but
+    TRAIN_EPOCHS, and ``--metrics_csv``; the gather counts reset first.
+    Returns (its result, its report), after checking the step count, that
+    the history is finite and that the last epoch's mean cls_loss is below
+    the first's."""
     from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
-    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
-    from cmlpl_tpu_torch.train.state import CMLPLConfig
 
-    weights = os.path.join(tmp, "trained.npz")
-    metrics = os.path.join(tmp, "train_metrics.csv")
+    os.makedirs(tmp, exist_ok=True)
+    metrics = os.path.join(tmp, f"{name}_metrics.csv")
     argv = ["--dataID", str(DATA_ID), "--data_root", tmp,
             "--save_path_prefix", tmp, "--num_epochs", str(TRAIN_EPOCHS),
-            "--metrics_csv", metrics, "--weights_out", weights]
+            "--metrics_csv", metrics]
     for wrapper in WRAPPERS:
         wrapper.launches = 0
-    (acc_b, acc_e), lines, counts = run_cli(cli_train.main, argv, counter_fn)
+    result, lines, counts = run_cli(main_fn, argv + [
+        "--weights_out", os.path.join(tmp, f"{name}.npz")], counter_fn)
     total = counter_fn()
     train_s, train_launches = line_value(lines, counts, "training time")
-    map_b_s, _ = line_value(lines, counts, "full-scene inference time (net B)")
-    map_e_s, _ = line_value(lines, counts, "full-scene inference time (net E)")
     steps = TRAIN_EPOCHS * 78
     require(f"({steps} steps)" in next(ln for ln in lines
                                        if ln.startswith("training time")),
-            "step count")
-    # one pool gather per run, no bf16; each PaviaU map adds 406 launches
-    require(train_launches == (1, 0),
-            f"training launches (f32, bf16) {train_launches}")
-    require(total == (1 + 2 * 406, 0), f"launches with the maps {total}")
+            f"{name}: step count")
     hist = read_history(metrics)
     require(all(np.isfinite(v).all() for v in hist.values()),
-            "a training metric is not finite")
+            f"{name}: a training metric is not finite")
     cls = hist["cls_loss"].reshape(TRAIN_EPOCHS, 78).mean(axis=1)
-    require(cls[-1] < cls[0], f"cls_loss by epoch {cls}")
-    require(acc_b.oa > 0.5 and acc_e.oa > 0.5,
-            f"OA net B {acc_b.oa}, net E {acc_e.oa}")
+    require(cls[-1] < cls[0], f"{name}: cls_loss by epoch {cls}")
+    return result, {
+        "epochs": TRAIN_EPOCHS, "steps": steps, "train_s": train_s,
+        "ms_per_step": train_s / steps * 1e3,
+        "train_patches_per_s": steps * (128 + 128) / train_s,
+        "map_s": {m: line_value(lines, counts,
+                                f"full-scene inference time ({m})")[0]
+                  for m in maps},
+        "launches_training": {"gather_patches_f32": train_launches[0],
+                              "gather_patches_bf16": train_launches[1]},
+        "launches_with_maps": {"gather_patches_f32": total[0],
+                               "gather_patches_bf16": total[1]},
+        "cls_loss_by_epoch": cls.tolist()}
 
-    # a profiled window of 20 steps (after 5 unprofiled ones), and the same
-    # window unprofiled for the idle share
-    trainer = CMLPLTrainer(CMLPLConfig(), device=tscene.device)
+
+def profiled_window(trainer, tscene) -> dict:
+    """A profiled window of 20 default-schedule steps (after 5 unprofiled
+    ones), and the same window unprofiled for the idle share."""
     state = trainer.init_state(SEED)
     li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
     trainer.train_epoch(state, tscene, li[:5], ly[:5], ui[:5], 1)
@@ -510,6 +563,38 @@ def phase_train(tmp, cube, tscene, counter_fn):
     window_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps": 20, "wall_ms_unprofiled": window_ms,
+            "wall_ms_profiled": prof_wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / window_ms,
+            "top_device_ops_ms": [{"name": k[:90], "ms": v,
+                                   "calls": calls[k]} for k, v in top]}
+
+
+def accuracy(acc) -> dict:
+    return {"oa": acc.oa, "aa": acc.aa, "kappa": acc.kappa}
+
+
+def phase_train(tmp, cube, tscene, counter_fn):
+    """cli.train.main at full width with its default pool gather, a
+    profiled window of its steps, and serve with the written weights."""
+    from cmlpl_tpu_torch.cli import serve
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    (acc_b, acc_e), report = train_cli_run(cli_train.main, tmp, "cmlpl",
+                                           counter_fn, ("net B", "net E"))
+    # one pool gather per run, no bf16; each PaviaU map adds 406 launches
+    launches = report["launches_training"]["gather_patches_f32"]
+    require((launches, report["launches_training"]["gather_patches_bf16"])
+            == (1, 0), f"training launches {report['launches_training']}")
+    require(report["launches_with_maps"] == {
+        "gather_patches_f32": 1 + 2 * 406, "gather_patches_bf16": 0},
+        f"launches with the maps {report['launches_with_maps']}")
+    require(acc_b.oa > 0.5 and acc_e.oa > 0.5,
+            f"OA net B {acc_b.oa}, net E {acc_e.oa}")
+    window = profiled_window(CMLPLTrainer(CMLPLConfig(),
+                                          device=tscene.device), tscene)
 
     # serve one request with the written weights: the CLI's net B map
     scene_npy = os.path.join(tmp, "paviau.npy")
@@ -517,8 +602,9 @@ def phase_train(tmp, cube, tscene, counter_fn):
     served_svg = os.path.join(tmp, "served_trained.svg")
     stdout = io.StringIO()
     serve.main(["--dataID", str(DATA_ID), "--n_PC", str(N_PC), "--w", str(W),
-                "--val_batch_size", str(TILE), "--weights", weights,
-                "--data_root", tmp, "--no_warmup"],
+                "--val_batch_size", str(TILE), "--weights",
+                os.path.join(tmp, "cmlpl.npz"), "--data_root", tmp,
+                "--no_warmup"],
                stdin=io.StringIO(json.dumps({"id": "trained",
                                              "cube": scene_npy,
                                              "out": served_svg}) + "\n"),
@@ -530,30 +616,46 @@ def phase_train(tmp, cube, tscene, counter_fn):
     with open(cli_svg, "rb") as a, open(served_svg, "rb") as b:
         require(a.read() == b.read(), "served map != the CLI's net B map")
 
-    emit({"phase": "train", "epochs": TRAIN_EPOCHS, "steps": steps,
-          "train_s": train_s, "ms_per_step": train_s / steps * 1e3,
-          "train_patches_per_s": steps * (128 + 128) / train_s,
-          "map_s": {"net_b": map_b_s, "net_e": map_e_s},
-          "launches_training": {"gather_patches_f32": train_launches[0],
-                                "gather_patches_bf16": train_launches[1]},
-          "launches_with_maps": {"gather_patches_f32": total[0],
-                                 "gather_patches_bf16": total[1]},
-          "cls_loss_by_epoch": cls.tolist(),
-          "oa": {"net_b": acc_b.oa, "net_e": acc_e.oa},
-          "aa": {"net_b": acc_b.aa, "net_e": acc_e.aa},
-          "kappa": {"net_b": acc_b.kappa, "net_e": acc_e.kappa},
+    emit({"phase": "train", **report,
+          "accuracy": {"net_b": accuracy(acc_b), "net_e": accuracy(acc_e)},
           "served_map_equals_cli_map": True,
           "serve_latency_s": response["latency_s"],
-          "profiled_window": {
-              "steps": 20, "wall_ms_unprofiled": window_ms,
-              "wall_ms_profiled": prof_wall_ms, "device_busy_ms": busy_ms,
-              "device_idle_share": 1 - busy_ms / window_ms,
-              "top_device_ops_ms": [
-                  {"name": k[:90], "ms": v, "calls": calls[k]}
-                  for k, v in top]},
+          "profiled_window": window,
           "note": "synthetic PaviaU-size scene substituted for the absent "
                   ".mat; OA says the run learns, not how well on PaviaU"})
-    return train_launches[0]
+    return launches
+
+
+def phase_train_algo(tmp, tscene, counter_fn, algo: str):
+    """cli.train_cps or cli.train_cct at full width with the default
+    20-epoch schedule and pool gather: one f32 launch in training, 406 a
+    map (two maps for CPS, one for CCT), no bf16; then a profiled window
+    of its steps."""
+    from cmlpl_tpu_torch.cli import train_cct, train_cps
+    from cmlpl_tpu_torch.train import CCTTrainer, CPSTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    main_fn, trainer_cls, maps = {
+        "cps": (train_cps.main, CPSTrainer, ("net B", "net E")),
+        "cct": (train_cct.main, CCTTrainer, ("CCT",))}[algo]
+    result, report = train_cli_run(main_fn, os.path.join(tmp, algo), algo,
+                                   counter_fn, maps)
+    launches = report["launches_training"]["gather_patches_f32"]
+    require((launches, report["launches_training"]["gather_patches_bf16"])
+            == (1, 0), f"{algo}: training launches "
+            f"{report['launches_training']}")
+    require(report["launches_with_maps"] == {
+        "gather_patches_f32": 1 + len(maps) * 406, "gather_patches_bf16": 0},
+        f"{algo}: launches with the maps {report['launches_with_maps']}")
+    accs = result if algo == "cps" else (result,)
+    window = profiled_window(trainer_cls(CMLPLConfig(),
+                                         device=tscene.device), tscene)
+    emit({"phase": f"train_{algo}", **report,
+          "accuracy": {m: accuracy(a) for m, a in zip(maps, accs)},
+          "profiled_window": window,
+          "note": "synthetic PaviaU-size scene substituted for the absent "
+                  ".mat; OA says the run learns, not how well on PaviaU"})
+    return launches
 
 
 def phase_train_pallas(tmp, counter_fn):
@@ -618,18 +720,14 @@ def verdict(ref: dict, ours: dict) -> dict:
     }
 
 
-def phase_train_ab(tmp):
-    """OA of cli.train vs the reference's own PyTorch code on the hard
-    synthetic scene (``docs/cmlpl_ref_seeds_r4.json``): seeds 1088..1099,
-    the oracle's scene, flags and splits."""
-    from cmlpl_tpu_torch.cli import train as cli_train
+def ab_inputs(tmp):
+    """The oracle's A/B scene and splits (``scripts/reference_oracle.py:
+    342-344,404-409``: the hard 64x48 synthetic scene of the paviau
+    geometry, i.e. the 9-class, 103-band synthetic spec 0), written as the
+    CLIs read them.  Returns (the splits directory, the scene npz)."""
     from cmlpl_tpu_torch.data.io import synthetic_scene
     from cmlpl_tpu_torch.data.splits import generate_splits, load_splits
 
-    with open(os.path.join(ROOT, "docs", "cmlpl_ref_seeds_r4.json")) as f:
-        ref = json.load(f)["cmlpl"]["reference"]
-    # scripts/reference_oracle.py:342-344,404-409 (geometry paviau = the
-    # 9-class, 103-band synthetic spec 0)
     cube, gt = synthetic_scene(0, rows=64, cols=48, noise_std=1.2,
                                class_sep=0.35)
     ab = os.path.join(tmp, "ab")
@@ -645,10 +743,27 @@ def phase_train_ab(tmp):
     back = load_splits(ab)
     require(all(np.array_equal(getattr(back, k), getattr(splits, k))
                 for k in ("train", "test", "unlabeled")), "splits differ")
+    return ab, scene_npz
+
+
+def phase_ab(ab, scene_npz, algo: str):
+    """OA of ``algo``'s CLI vs the reference's own PyTorch code on the hard
+    synthetic scene (``docs/<algo>_ref_seeds_r4.json``): seeds
+    1088..1099, the oracle's scene, splits and flags
+    (``scripts/reference_oracle.py:297-317``: the same for the three
+    CLIs).  CCT has one net, so its ``oa_b`` is empty; its reference
+    spread is wide (sd 3.87), so its gate is the verdict's two standard
+    errors where that is above AB_MAX_DIFF."""
+    from cmlpl_tpu_torch.cli import train, train_cct, train_cps
+
+    main_fn = {"cmlpl": train.main, "cps": train_cps.main,
+               "cct": train_cct.main}[algo]
+    with open(os.path.join(ROOT, "docs", f"{algo}_ref_seeds_r4.json")) as f:
+        ref = json.load(f)[algo]["reference"]
     ours = {"oa_a": [], "oa_b": [], "sec_per_seed": []}
     for s in range(len(ref["oa_a"])):
         t0 = time.perf_counter()
-        (acc_a, acc_b), _, _ = run_cli(cli_train.main, [
+        result, _, _ = run_cli(main_fn, [
             "--dataID", "0", "--n_PC", "60", "--w", "20",
             "--scene_npz", scene_npz, "--splits_dir", ab,
             "--num_label", "5", "--num_epochs", "10",
@@ -658,16 +773,97 @@ def phase_train_ab(tmp):
             "--seed", str(1088 + s), "--save_path_prefix", ab],
             lambda: None)
         ours["sec_per_seed"].append(time.perf_counter() - t0)
-        ours["oa_a"].append(acc_a.oa * 100)
-        ours["oa_b"].append(acc_b.oa * 100)
+        accs = (result,) if algo == "cct" else result
+        ours["oa_a"].append(accs[0].oa * 100)
+        if algo != "cct":
+            ours["oa_b"].append(accs[1].oa * 100)
     v = verdict(ref, ours)
-    diff = (np.mean(ours["oa_a"] + ours["oa_b"])
-            - np.mean(ref["oa_a"] + ref["oa_b"]))
-    require(abs(diff) <= AB_MAX_DIFF,
-            f"mean OA {diff:+.2f} points from the reference's")
-    emit({"phase": "train_ab", "ours": ours, "verdict": v,
-          "mean_diff_unrounded": float(diff), "gate": AB_MAX_DIFF})
+    r = np.array(ref["oa_a"] + ref["oa_b"])
+    o = np.array(ours["oa_a"] + ours["oa_b"])
+    diff = float(o.mean() - r.mean())
+    two_se = 2 * float(np.sqrt(r.var(ddof=1) / len(r)
+                               + o.var(ddof=1) / len(o)))
+    gate = max(AB_MAX_DIFF, two_se) if algo == "cct" else AB_MAX_DIFF
+    require(abs(diff) <= gate,
+            f"{algo}: mean OA {diff:+.2f} points from the reference's "
+            f"(gate {gate:.2f})")
+    emit({"phase": "train_ab" if algo == "cmlpl" else f"{algo}_ab",
+          "ours": ours, "verdict": v, "mean_diff_unrounded": diff,
+          "two_se": two_se, "gate": gate})
     return v
+
+
+def phase_dense(params, cube, scene, tiled_map, tiled_map_s: float):
+    """Dense whole-scene eval at PaviaU width with the smoke's weights:
+    ``predict --eval_gather dense`` launches no gather; the dense logits
+    on the card agree with the same function's on the CPU, and so do the
+    maps (tie-safe); the dense map's time beside the tiled one's, and the
+    share of pixels where the two maps agree (reported: the weights are
+    random, and the two differ by design near patch borders)."""
+    from cmlpl_tpu_torch.cli import predict
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.eval.inference import (ScenePredictor,
+                                                dense_scene_logits)
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+    from cmlpl_tpu_torch.weights import save_params_npz, state_dict_from_jax
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "w.npz")
+        save_params_npz(weights, params)
+        for wrapper in WRAPPERS:
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        pred = predict.main([
+            "--dataID", str(DATA_ID), "--n_PC", str(N_PC), "--w", str(W),
+            "--weights", weights, "--data_root", tmp, "--eval_gather",
+            "dense", "--out", os.path.join(tmp, "dense.svg")])
+        predict_s = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    require(not any(launches.values()), f"dense launched {launches}")
+    require(not torch.backends.cudnn.allow_tf32
+            and not torch.backends.cuda.matmul.allow_tf32, "TF32 on")
+
+    sd_cpu = state_dict_from_jax(params)
+    sd_card = {k: v.to(scene.device) for k, v in sd_cpu.items()}
+    cpu_scene = prepare_scene(DATA_ID, cube=cube, gt=np.zeros(cube.shape[:2]),
+                              patch_size=W, n_pc=N_PC, device="cpu")
+    with torch.inference_mode():
+        card = dense_scene_logits(sd_card, scene).cpu()
+        cpu = dense_scene_logits(sd_cpu, cpu_scene)
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    require(card.shape == (scene.num_pixels, 9) and torch.isfinite(card).all(),
+            f"dense logits {tuple(card.shape)}")
+    require(torch.allclose(card, cpu, rtol=1e-4, atol=1e-4 * scale),
+            f"dense card vs CPU: max diff {err}, max |logit| {scale}")
+    cpu_map = cpu.argmax(-1).to(torch.int32).numpy()
+    tie_safe_equal(card.argmax(-1).to(torch.int32).numpy(), cpu_map,
+                   lambda ids: cpu[torch.from_numpy(ids)], "dense card vs CPU")
+    tie_safe_equal(pred, cpu_map, lambda ids: cpu[torch.from_numpy(ids)],
+                   "predict --eval_gather dense vs the CPU's dense map")
+
+    predictor = ScenePredictor(None, params=sd_card, patch_size=W,
+                               cols=scene.cols, gather="dense")
+    predictor(scene)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense_map = predictor(scene)
+    dense_map_s = time.perf_counter() - t0
+    dev_ms, counts, prof_wall_ms = profiled(predictor, [(scene,)])
+    busy_ms = sum(dev_ms.values())
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "dense", "predict_wall_s": predict_s,
+          "gather_launches": launches, "logits_max_abs_diff_card_vs_cpu":
+          err, "max_abs_logit": scale, "card_map_vs_cpu_map_differing_pixels":
+          int((dense_map != cpu_map).sum()), "dense_map_s": dense_map_s,
+          "tiled_map_s": tiled_map_s,
+          "agreement_with_tiled_map": float((dense_map == tiled_map).mean()),
+          "profiled_map": {"wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+                           "device_idle_share": 1 - busy_ms / prof_wall_ms,
+                           "top_kernels_ms": [
+                               {"name": k[:90], "ms": v, "calls": counts[k]}
+                               for k, v in top]},
+          "note": "random weights on the synthetic PaviaU-size scene"})
 
 
 def main() -> int:
@@ -689,9 +885,9 @@ def main() -> int:
                                                   gather_patches_bf16,
                                                   gather_patches_f32)
     from cmlpl_tpu_torch.registry import get_dataset
-    from cmlpl_tpu_torch.weights import (basenet2_state_dict_from_jax,
-                                         init_basenet2_params,
-                                         save_params_npz)
+    from cmlpl_tpu_torch.weights import (init_basenet2_params,
+                                         save_params_npz,
+                                         state_dict_from_jax)
 
     t_start = time.perf_counter()
     device = torch.device("cuda")
@@ -713,7 +909,7 @@ def main() -> int:
                                   patch_size=W)
     model = BaseNet2(num_features=spec.num_bands, dropout=0.8,
                      num_classes=spec.num_classes, n_pc=N_PC, patch_size=W)
-    model.load_state_dict(basenet2_state_dict_from_jax(params))
+    model.load_state_dict(state_dict_from_jax(params))
     model = model.to(device).eval()
     apply = logits_fn(model)
     cube, gt = synthetic_scene(DATA_ID)
@@ -800,13 +996,14 @@ def main() -> int:
         cpu_model = BaseNet2(num_features=spec.num_bands,
                              num_classes=spec.num_classes, n_pc=N_PC,
                              patch_size=W)
-        cpu_model.load_state_dict(basenet2_state_dict_from_jax(params))
+        cpu_model.load_state_dict(state_dict_from_jax(params))
         cpu_apply = logits_fn(cpu_model.eval())
         card_small = ScenePredictor(apply, patch_size=W, cols=48, tile=TILE,
                                     gather="pallas")(small["cuda"])
         cpu_small = ScenePredictor(cpu_apply, patch_size=W, cols=48,
                                    tile=TILE, gather="xla")(small["cpu"])
-        tie_safe_equal(card_small, cpu_small, cpu_apply, small["cpu"],
+        tie_safe_equal(card_small, cpu_small,
+                       tiled_logits(cpu_apply, small["cpu"]),
                        "card vs CPU map")
         ids = torch.arange(TILE, dtype=torch.int32)
         with torch.inference_mode():
@@ -892,26 +1089,40 @@ def main() -> int:
                                {"name": k[:90], "ms": v, "calls": counts[k]}
                                for k, v in top]}})
 
-    # 5. training (slice 2): the kernels at the training shapes, the step on
-    # the card vs the CPU, cli.train at full width with its default pool
-    # gather, one epoch with each per-step kernel gather, the OA A/B
+    # dense whole-scene eval beside the tiled map
+    phase_dense(params, cube, scene, served, map_s)
+
+    # 5. training (slices 2 and 3): the kernels at the training shapes, the
+    # steps of the three trainers on the card vs the CPU, cli.train at full
+    # width with its default pool gather, one epoch with each per-step
+    # kernel gather, cli.train_cps and cli.train_cct at full width, the OA
+    # A/B of each CLI
     train_gather = phase_train_gather(tscene, tscene.labels, device)
-    phase_train_card_vs_cpu(cube, gt, device)
+    for algo in ("cmlpl", "cps", "cct"):
+        phase_card_vs_cpu(cube, gt, device, algo)
 
     def counter_fn():
         return (gather_patches_f32.launches, gather_patches_bf16.launches)
 
     with tempfile.TemporaryDirectory() as tmp:
-        pool_launches = phase_train(tmp, cube, tscene, counter_fn)
+        pool_launches = {"cmlpl": phase_train(tmp, cube, tscene,
+                                              counter_fn)}
         per_step = phase_train_pallas(tmp, counter_fn)
-        phase_train_ab(tmp)
+        for algo in ("cps", "cct"):
+            pool_launches[algo] = phase_train_algo(tmp, tscene, counter_fn,
+                                                   algo)
+        ab, scene_npz = ab_inputs(tmp)
+        for algo in ("cmlpl", "cps", "cct"):
+            phase_ab(ab, scene_npz, algo)
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"],
                 "patch_gather_bf16":
                 predict_launches["gather_patches_bf16"]}
     launches_train = {
         "patch_gather_f32": {
-            "cli.train default (pool), training": pool_launches,
+            "cli.train default (pool), training": pool_launches["cmlpl"],
+            "cli.train_cps default (pool), training": pool_launches["cps"],
+            "cli.train_cct default (pool), training": pool_launches["cct"],
             "cli.train --gather_impl pallas, training":
             per_step["pallas"]["launches_training"][0]},
         "patch_gather_bf16": {

@@ -6,8 +6,9 @@ The flags have the JAX package's names and defaults (reference
 the CPU).  predict and serve read :func:`base_parser` and ``--weights``, a
 BaseNet2 param npz in the JAX layout (:mod:`cmlpl_tpu_torch.weights`),
 which takes the place of ``--checkpoint_dir``, whose orbax checkpoints
-need JAX to read.  train reads :func:`train_parser`; its ``--weights_out``
-writes net B's params in that layout.
+need JAX to read.  train, train_cps and train_cct read
+:func:`train_parser`; its ``--weights_out`` writes the trained weights in
+that layout.
 """
 
 from __future__ import annotations
@@ -15,19 +16,20 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+import time
 
 import numpy as np
+import torch
 
 from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.data.splits import generate_splits, load_splits
-from cmlpl_tpu_torch.eval.inference import GATHERS
+from cmlpl_tpu_torch.eval.inference import GATHERS, ScenePredictor
 from cmlpl_tpu_torch.models.basenet import BaseNet2
 from cmlpl_tpu_torch.ops.patch_gather import TRAIN_GATHERS
 from cmlpl_tpu_torch.registry import get_dataset
 from cmlpl_tpu_torch.train.state import CMLPLConfig
-from cmlpl_tpu_torch.weights import (basenet2_state_dict_from_jax,
-                                     load_params_npz)
+from cmlpl_tpu_torch.weights import load_params_npz, state_dict_from_jax
 
 
 def _shared_parser() -> argparse.ArgumentParser:
@@ -44,13 +46,14 @@ def _shared_parser() -> argparse.ArgumentParser:
                    help="model compute dtype (params stay float32); "
                         "training takes float32 only for now")
     p.add_argument("--eval_gather", type=str, default="auto",
-                   choices=list(GATHERS) + ["dense"],
+                   choices=list(GATHERS),
                    help="full-scene inference patch gather: auto = the f32 "
                         "CUDA kernel on the card / the plain gather on the "
                         "CPU; pallas = the f32 CUDA kernel; pallas_bf16 = "
                         "the bf16 CUDA kernel (patch inputs "
                         "bf16-quantised); xla = the plain PyTorch gather; "
-                        "dense is not ported yet")
+                        "dense = one dilated-conv pass over the whole "
+                        "scene, no gather (BaseNet2/CCT, w % 4 == 0)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the CPU only when asked for")
     return p
@@ -66,7 +69,7 @@ def base_parser() -> argparse.ArgumentParser:
 
 
 def train_parser() -> argparse.ArgumentParser:
-    """The flags of train."""
+    """The flags of train, train_cps and train_cct."""
     p = _shared_parser()
     p.add_argument("--save_path_prefix", type=str, default="./")
     p.add_argument("--metrics_csv", type=str, default=None,
@@ -125,12 +128,15 @@ def train_parser() -> argparse.ArgumentParser:
                         "'pallas'/'pallas_bf16' = the f32/bf16 CUDA kernel "
                         "per step")
     p.add_argument("--num_iters", type=int, default=1,
-                   help="repeat training num_iters times and report "
-                        "mean±std (reference train.py:116 index_iter loop)")
+                   help="train: repeat training num_iters times and report "
+                        "mean±std (reference train.py:116 index_iter loop); "
+                        "accepted and ignored by train_cps and train_cct, "
+                        "as in the JAX package")
     p.add_argument("--weights_out", type=str, default=None,
-                   help="write net B's params as a flat '<layer>/<leaf>' "
-                        "npz in the JAX layout (what predict and serve "
-                        "read as --weights)")
+                   help="write the trained params as a flat '/'-keyed npz "
+                        "in the JAX layout: net B's for train and train_cps "
+                        "(what predict and serve read as --weights), the "
+                        "CCT tree for train_cct")
     return p
 
 
@@ -213,13 +219,45 @@ def build_model(args, spec, device) -> BaseNet2:
                      num_classes=spec.num_classes, n_pc=args.n_PC,
                      patch_size=args.w, compute_dtype=args.compute_dtype)
     model.load_state_dict(
-        basenet2_state_dict_from_jax(load_params_npz(args.weights)))
+        state_dict_from_jax(load_params_npz(args.weights)))
     return model.to(device).eval()
 
 
 def logits_fn(model: BaseNet2):
     """``(xp, x) -> logits`` of a BaseNet2, for ``ScenePredictor``."""
     return lambda xp, x: model(xp, x)[0]
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_fit(trainer, state, scene, sampler, log_every: int):
+    """``trainer.fit`` between two device synchronises; prints the
+    "training time == <s>s (<n> steps)" line.  Returns (state, history)."""
+    sync(trainer.device)
+    t0 = time.perf_counter()
+    state, history = trainer.fit(state, scene, sampler, log_every=log_every)
+    sync(trainer.device)
+    print(f"training time == {time.perf_counter() - t0:.3f}s "
+          f"({len(history)} steps)")
+    return state, history
+
+
+def scene_map(args, scene, model_fn, params, name: str) -> np.ndarray:
+    """The full-scene map of a trained model with ``--eval_gather``:
+    ``model_fn(xp, x) -> logits`` for the tiled modes, its ``state_dict``
+    ``params`` for "dense".  Prints the "full-scene inference time (<name>)
+    == <s>s" line."""
+    predictor = ScenePredictor(model_fn, params=params, patch_size=args.w,
+                               cols=scene.cols, tile=args.val_batch_size,
+                               gather=args.eval_gather)
+    t0 = time.perf_counter()
+    pred = predictor(scene)
+    print(f"full-scene inference time ({name}) == "
+          f"{time.perf_counter() - t0:.3f}s")
+    return pred
 
 
 def report_accuracy(name: str, acc) -> None:

@@ -11,10 +11,8 @@ from __future__ import annotations
 
 import time
 
-import torch
-
 from cmlpl_tpu_torch.cli._common import (base_parser, build_model, logits_fn,
-                                         report_accuracy)
+                                         report_accuracy, sync)
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.data.splits import generate_splits
 from cmlpl_tpu_torch.device import resolve_device
@@ -35,12 +33,11 @@ def main(argv=None):
                           n_pc=args.n_PC, device=device)
     model = build_model(args, spec, device)
     predictor = ScenePredictor(
-        logits_fn(model), patch_size=args.w, cols=scene.cols,
-        tile=args.val_batch_size, gather=args.eval_gather)
+        logits_fn(model), params=model.state_dict(), patch_size=args.w,
+        cols=scene.cols, tile=args.val_batch_size, gather=args.eval_gather)
     t0 = time.perf_counter()
     pred = predictor(scene)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     print(f"classified {scene.num_pixels} pixels in "
           f"{time.perf_counter() - t0:.3f}s")
 

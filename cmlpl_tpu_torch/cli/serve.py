@@ -25,9 +25,9 @@ import sys
 import time
 
 import numpy as np
-import torch
 
-from cmlpl_tpu_torch.cli._common import base_parser, build_model, logits_fn
+from cmlpl_tpu_torch.cli._common import (base_parser, build_model, logits_fn,
+                                         sync)
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.inference import ScenePredictor
@@ -48,12 +48,8 @@ def main(argv=None, stdin=None, stdout=None):
     spec = get_dataset(args.dataID)
     model = build_model(args, spec, device)
     predictor = ScenePredictor(
-        logits_fn(model), patch_size=args.w, cols=spec.cols,
-        tile=args.val_batch_size, gather=args.eval_gather)
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        logits_fn(model), params=model.state_dict(), patch_size=args.w,
+        cols=spec.cols, tile=args.val_batch_size, gather=args.eval_gather)
 
     def classify(cube, gt):
         scene = prepare_scene(spec, root=args.data_root, cube=cube, gt=gt,
@@ -64,10 +60,11 @@ def main(argv=None, stdin=None, stdout=None):
         nonlocal predictor
         if predictor.cols != scene.cols:
             predictor = ScenePredictor(
-                predictor.model, patch_size=args.w, cols=scene.cols,
-                tile=args.val_batch_size, gather=args.eval_gather)
+                predictor.model, params=predictor.params, patch_size=args.w,
+                cols=scene.cols, tile=args.val_batch_size,
+                gather=args.eval_gather)
         pred = predictor(scene)
-        sync()
+        sync(device)
         return scene, pred
 
     def respond(obj):

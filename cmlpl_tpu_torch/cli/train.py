@@ -14,22 +14,19 @@ and ``--profile_dir`` are not ported yet (ROADMAP.md section 1).
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
-import torch
 
 from cmlpl_tpu_torch.cli._common import (build_config, build_data,
                                          logits_fn, report_accuracy,
-                                         save_history, save_path,
-                                         train_parser)
+                                         save_history, save_path, scene_map,
+                                         timed_fit, train_parser)
 from cmlpl_tpu_torch.device import resolve_device
-from cmlpl_tpu_torch.eval.inference import ScenePredictor
 from cmlpl_tpu_torch.eval.metrics import cal_accuracy
 from cmlpl_tpu_torch.eval.report import save_report
 from cmlpl_tpu_torch.eval.visualize import save_class_map
 from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
-from cmlpl_tpu_torch.weights import basenet2_params_to_jax, save_params_npz
+from cmlpl_tpu_torch.weights import params_to_jax, save_params_npz
 
 
 def main(argv=None):
@@ -41,38 +38,22 @@ def main(argv=None):
     y_test = scene.labels[splits.test] - 1
     out = save_path(args, spec)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    def scene_map(model, name):
-        model.eval()
-        predictor = ScenePredictor(logits_fn(model),
-                                   patch_size=cfg.patch_size,
-                                   cols=scene.cols, tile=cfg.val_batch,
-                                   gather=args.eval_gather)
-        t0 = time.perf_counter()
-        pred = predictor(scene)
-        print(f"full-scene inference time ({name}) == "
-              f"{time.perf_counter() - t0:.3f}s")
-        return pred
+    def net_map(net, name):
+        net.model.eval()
+        return scene_map(args, scene, logits_fn(net.model),
+                         net.model.state_dict(), name)
 
     runs_b, runs_e = [], []
     state = None
     for index_iter in range(args.num_iters):
         state = trainer.init_state((args.seed, index_iter))
-        sync()
-        t0 = time.perf_counter()
-        state, history = trainer.fit(state, scene, sampler,
-                                     log_every=args.print_per_batches)
-        sync()
-        print(f"training time == {time.perf_counter() - t0:.3f}s "
-              f"({len(history)} steps)")
+        state, history = timed_fit(trainer, state, scene, sampler,
+                                   args.print_per_batches)
         if index_iter == 0:
             save_history(args, history)
 
-        pred_b = scene_map(state.net_b.model, "net B")
-        pred_e = scene_map(state.net_e.model, "net E")
+        pred_b = net_map(state.net_b, "net B")
+        pred_e = net_map(state.net_e, "net E")
         acc_b = cal_accuracy(pred_b[splits.test], y_test)
         acc_e = cal_accuracy(pred_e[splits.test], y_test)
         report_accuracy("net B", acc_b)
@@ -89,7 +70,7 @@ def main(argv=None):
         print(f"mean_OA ± std_OA is: {oas.mean()} ± {oas.std()}")
     if args.weights_out:
         save_params_npz(args.weights_out,
-                        basenet2_params_to_jax(state.net_b.model.state_dict()))
+                        params_to_jax(state.net_b.model.state_dict()))
         print(f"wrote {args.weights_out}")
     return runs_b[-1], runs_e[-1]
 

@@ -1,25 +1,35 @@
-"""Full-scene inference: the tiled map of ``cmlpl_tpu/eval/inference.py``
-(``ScenePredictor``, ``:144-249,328-364``) on PyTorch.
+"""Full-scene inference (``cmlpl_tpu/eval/inference.py``) on PyTorch: the
+tiled map (``ScenePredictor``, ``:144-249,328-364``) and the dense
+whole-scene evaluation (``dense_scene_logits``, ``:39-141``).
 
-Pixel ids are cut into tiles of ``tile`` pixels; each tile gathers its
-patches from the device-resident padded cube, runs the forward pass and
+Tiled: pixel ids are cut into tiles of ``tile`` pixels; each tile gathers
+its patches from the device-resident padded cube, runs the forward pass and
 argmaxes on the device.  The predictions stay on the device until one
 final (K,) int32 copy to the host.
+
+Dense: the conv stack runs once over the whole padded cube, with no gather
+at all.  It needs the weights, not a callable: ``ScenePredictor`` takes
+them as ``params``, a BaseNet2 ``state_dict`` or a CCT model's (keys
+``encoder.*`` and ``dec_base.fc.*``).  The split of the dense map across
+cards waits for ROADMAP item 10.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cmlpl_tpu_torch.data.patches import gather_patches, gather_spectra
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                               gather_patches_f32)
 
-GATHERS = ("auto", "xla", "pallas", "pallas_bf16")
+GATHERS = ("auto", "xla", "pallas", "pallas_bf16", "dense")
+
+_DENSE_LAYERS = ("conv0", "conv1", "conv2", "feat_spe", "classifier")
 
 
 def resolve_gather(gather: str, device: torch.device) -> str:
@@ -30,26 +40,109 @@ def resolve_gather(gather: str, device: torch.device) -> str:
     return "pallas" if device.type == "cuda" else "xla"
 
 
+def _dense_params_view(params: Mapping) -> dict:
+    """BaseNet2-shaped view of a ``state_dict`` for the dense pass.
+
+    Takes BaseNet2's keys directly, or a CCT model's: the CCT map is
+    ``dec_base(encoder(xp, x))`` and CCTNet's stem and (H, W, C) flatten
+    are BaseNet2's, so the head takes the classifier's place.  Raises
+    ValueError for any other shape."""
+    if "dec_base.fc.weight" in params:
+        view = {k[len("encoder."):]: v for k, v in params.items()
+                if k.startswith("encoder.")}
+        for leaf in ("weight", "bias"):
+            view[f"classifier.{leaf}"] = params.get(f"dec_base.fc.{leaf}")
+        params = view
+    keys = [f"{layer}.{leaf}" for layer in _DENSE_LAYERS
+            for leaf in ("weight", "bias")]
+    missing = [k for k in keys if params.get(k) is None]
+    if missing:
+        raise ValueError(
+            "dense eval requires BaseNet2/CCT-shaped params; missing "
+            f"{missing} (use the tiled gather modes for other backbones)")
+    return {k: params[k] for k in keys}
+
+
+def dense_scene_logits(params: Mapping, scene: PreparedScene
+                       ) -> torch.Tensor:
+    """(rows*cols, classes) f32 logits of the whole scene as ONE dense
+    dilated-conv pass over the padded cube (the a-trous transform), with
+    no patch gather: the two stride-2 pools become stride-1 pools with
+    conv2 at dilation 2 and the second pool at window dilation 2, and each
+    pixel's (w/4)^2 x 64 spatial flatten becomes (w/4)^2 shifted views of
+    the pooled map folded into the classifier.
+
+    Boundary semantics differ from the tiled map, as in the JAX package: a
+    patch zero-pads its own edges inside conv1/conv2, while the dense pass
+    sees the true neighbouring pixels.  With conv1/conv2 cut to their
+    centre tap the two agree everywhere.
+
+    ``params``: see :func:`_dense_params_view`.  Needs
+    ``patch_size % 4 == 0``.  Computes in f32 whatever the model's
+    compute dtype, as the JAX package does."""
+    if scene.patch_size % 4 != 0:
+        raise ValueError("dense eval needs patch_size % 4 == 0 "
+                         f"(got {scene.patch_size})")
+    return _dense_logits(_dense_params_view(params), scene.padded_pca,
+                         scene.spectra, scene.rows, scene.cols,
+                         scene.patch_size)
+
+
+def _dense_logits(params: dict, padded: torch.Tensor, spectra: torch.Tensor,
+                  rows: int, cols: int, patch_size: int) -> torch.Tensor:
+    p = {k: v.to(padded.device, torch.float32) for k, v in params.items()}
+    g = patch_size // 4
+
+    def conv(x, layer, dilation=1, padding=0):
+        return F.conv2d(x, p[f"{layer}.weight"], p[f"{layer}.bias"],
+                        padding=padding, dilation=dilation)
+
+    cube = padded.float().permute(2, 0, 1)[None]         # (1, C, H, W)
+    f0 = conv(cube, "conv0")
+    f1 = F.relu(conv(f0, "conv1", padding=1) + f0)
+    p1 = F.avg_pool2d(f1, 2, stride=1)
+    f2 = F.relu(conv(p1, "conv2", dilation=2, padding=2) + p1)
+    # a 2x2 window at dilation 2 (avg_pool2d has no window dilation): the
+    # sum of four views shifted by 0 and 2 rows and columns
+    p2 = (f2[..., :-2, :-2] + f2[..., :-2, 2:] + f2[..., 2:, :-2]
+          + f2[..., 2:, 2:]) / 4
+    p2 = p2[0].permute(1, 2, 0)                          # (H', W', 64)
+
+    wk = p["classifier.weight"]          # (classes, spatial + 1024)
+    logits_sp = torch.zeros(rows, cols, wk.shape[0], device=padded.device)
+    for a in range(g):                   # (H, W, C) order of the flatten
+        for b in range(g):
+            blk = wk[:, (a * g + b) * 64:(a * g + b + 1) * 64]
+            logits_sp = logits_sp + (
+                p2[4 * a:4 * a + rows, 4 * b:4 * b + cols] @ blk.T)
+    y = F.relu(F.linear(spectra.float(), p["feat_spe.weight"],
+                        p["feat_spe.bias"]))
+    logits_spec = y @ wk[:, 64 * g * g:].T
+    return (logits_sp.reshape(rows * cols, -1) + logits_spec
+            + p["classifier.bias"])
+
+
 class ScenePredictor:
     """Classifies every pixel of a prepared scene.
 
-    ``model(xp, x) -> logits`` abstracts the network.  ``gather``:
-    "pallas" (the f32 CUDA kernel), "pallas_bf16" (the bf16 CUDA kernel
-    over a bf16 copy of the cube, made once per call; patch INPUTS are
-    bf16-quantised then upcast, so boundary pixels can flip class vs f32),
-    "xla" (the plain PyTorch gather), or "auto" (see
-    :func:`resolve_gather`).
+    ``model(xp, x) -> logits`` abstracts the network of the tiled modes.
+    ``gather``: "pallas" (the f32 CUDA kernel), "pallas_bf16" (the bf16
+    CUDA kernel over a bf16 copy of the cube, made once per call; patch
+    INPUTS are bf16-quantised then upcast, so boundary pixels can flip
+    class vs f32), "xla" (the plain PyTorch gather), "auto" (see
+    :func:`resolve_gather`), or "dense" (:func:`dense_scene_logits` from
+    ``params``, no gather and no ``model``).
     """
 
-    def __init__(self, model: Callable, *, patch_size: int, cols: int,
-                 tile: int = 4096, gather: str = "auto"):
-        if gather == "dense":
-            raise NotImplementedError(
-                "gather='dense' (dense whole-scene eval) is not ported yet: "
-                "ROADMAP.md section 1, 'Dense whole-scene eval'")
+    def __init__(self, model: Callable | None, *, patch_size: int,
+                 cols: int, tile: int = 4096, gather: str = "auto",
+                 params: Mapping | None = None):
         if gather not in GATHERS:
             raise ValueError(f"unknown gather {gather!r}; one of {GATHERS}")
+        if gather == "dense" and params is None:
+            raise ValueError("gather='dense' needs the weights as params")
         self.model = model
+        self.params = params
         self.patch_size = patch_size
         self.cols = cols
         self.tile = tile
@@ -68,6 +161,9 @@ class ScenePredictor:
     @torch.inference_mode()
     def __call__(self, scene: PreparedScene) -> np.ndarray:
         """Returns 0-based predicted class ids for all rows*cols pixels."""
+        if self.gather == "dense":
+            logits = dense_scene_logits(self.params, scene)
+            return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         device = scene.device
         mode = resolve_gather(self.gather, device)
         gather = self._gather_fn(mode)

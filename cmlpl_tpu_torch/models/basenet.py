@@ -1,11 +1,13 @@
-"""BaseNet2, the CMLPL backbone (reference ``tools/models.py:97-152``;
-JAX counterpart ``cmlpl_tpu/models/basenet.py:34-76``).
+"""BaseNet2, the CMLPL and CPS backbone (reference ``tools/models.py:97-152``;
+JAX counterpart ``cmlpl_tpu/models/basenet.py:34-76``), and the CCT family:
+``CCTNet``, ``Decoder`` and ``LinearClassifier`` (``:113-196``).
 
 The public input is NHWC ``(B, w, w, n_pc)`` as in the JAX package.  The
 patch is viewed as NCHW with channels-last strides for cuDNN, and the
 spatial flatten runs in (H, W, C) order like the flax model, so weights
 carried over from JAX (:mod:`cmlpl_tpu_torch.weights`) line up with the
-classifier's rows.
+classifier's rows.  BaseNet2 and CCTNet share one stem (the JAX package
+writes it twice) and its layer names.
 """
 
 from __future__ import annotations
@@ -22,30 +24,28 @@ FEAT_DIM = 1024       # spectral feature width (models.py:119)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-class BaseNet2(nn.Module):
-    """Dual-branch spectral-spatial CNN.
+def joint_dim(patch_size: int) -> int:
+    """Width of the joint feature: the (w/4)^2 x 64 spatial flatten and the
+    spectral feature (2624 at w = 20, models.py:127)."""
+    return 64 * (patch_size // 4) ** 2 + FEAT_DIM
 
-    Inputs: ``xp`` (B, w, w, n_pc) PCA patch (NHWC), ``x`` (B, bands)
-    spectrum.  Returns (logits, l2-normalised spectral feature), both f32.
 
-    ``compute_dtype``: dtype the conv/dense layers compute in; params stay
-    f32 and are cast per call, as flax's ``dtype`` does.  Constructing the
-    model sets the TF32 switches from it (``set_compute_precision``).
-    """
+class _Stem(nn.Module):
+    """The spectral-spatial stem: conv0-conv2 with two residual average
+    pools on the patch, ``feat_spe`` on the spectrum.
 
-    def __init__(self, num_features: int = 103, dropout: float = 0.0,
-                 num_classes: int = 9, n_pc: int = 60, patch_size: int = 20,
-                 compute_dtype: str = "float32"):
+    ``compute_dtype``: dtype the stem computes in; params stay f32 and are
+    cast per call, as flax's ``dtype`` does.  Constructing the model sets
+    the TF32 switches from it (``set_compute_precision``)."""
+
+    def __init__(self, num_features: int, n_pc: int, compute_dtype: str):
         super().__init__()
         set_compute_precision(compute_dtype)
         self.compute_dtype = _DTYPES[compute_dtype]
-        self.dropout = dropout
         self.conv0 = nn.Conv2d(n_pc, 64, 1)
         self.conv1 = nn.Conv2d(64, 64, 3, padding=1)
         self.conv2 = nn.Conv2d(64, 64, 3, padding=1)
         self.feat_spe = nn.Linear(num_features, FEAT_DIM)
-        spatial = 64 * (patch_size // 4) ** 2
-        self.classifier = nn.Linear(spatial + FEAT_DIM, num_classes)
 
     def _conv(self, layer: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -56,12 +56,10 @@ class BaseNet2(nn.Module):
         dt = self.compute_dtype
         return F.linear(h, layer.weight.to(dt), layer.bias.to(dt))
 
-    def forward(self, xp: torch.Tensor, x: torch.Tensor,
-                generator: torch.Generator | None = None):
-        """In training mode the dropout mask is drawn from ``generator``
-        (torch's default generator when None)."""
-        dt = self.compute_dtype
-        h = xp.to(dt).permute(0, 3, 1, 2)   # NCHW view, channels-last strides
+    def stem(self, xp: torch.Tensor, x: torch.Tensor):
+        """(spatial flatten (B, 64 (w/4)^2) in (H, W, C) order, ReLU'd
+        spectral feature (B, 1024)), both in the compute dtype."""
+        h = xp.to(self.compute_dtype).permute(0, 3, 1, 2)  # NCHW view
         h = self._conv(self.conv0, h)
         res = h
         h = F.relu(self._conv(self.conv1, h) + res)
@@ -69,15 +67,113 @@ class BaseNet2(nn.Module):
         res = h
         h = F.relu(self._conv(self.conv2, h) + res)
         h = avg_pool2(h)
-        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # (H, W, C) order
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        y = F.relu(self._dense(self.feat_spe, x.to(self.compute_dtype)))
+        return h, y
 
-        y = F.relu(self._dense(self.feat_spe, x.to(dt)))
+
+class BaseNet2(_Stem):
+    """Dual-branch spectral-spatial CNN.
+
+    Inputs: ``xp`` (B, w, w, n_pc) PCA patch (NHWC), ``x`` (B, bands)
+    spectrum.  Returns (logits, l2-normalised spectral feature), both f32.
+    """
+
+    def __init__(self, num_features: int = 103, dropout: float = 0.0,
+                 num_classes: int = 9, n_pc: int = 60, patch_size: int = 20,
+                 compute_dtype: str = "float32"):
+        super().__init__(num_features, n_pc, compute_dtype)
+        self.dropout = dropout
+        self.classifier = nn.Linear(joint_dim(patch_size), num_classes)
+
+    def forward(self, xp: torch.Tensor, x: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """In training mode the dropout mask is drawn from ``generator``
+        (torch's default generator when None)."""
+        h, y = self.stem(xp, x)
         z = torch.cat([h, y], dim=1)
         feat = l2_normalize(y.float())
         if self.dropout > 0 and self.training:
             z = dropout(z, self.dropout, generator)
         logits = self._dense(self.classifier, z)
         return logits.float(), feat
+
+
+class CCTNet(_Stem):
+    """CCT encoder (models.py:229-287): BaseNet2's stem returning the f32
+    joint feature twice.  ``with_decoder`` adds ``feat_ss`` and the
+    reconstruction ``Decoder`` (f32, as in flax) and returns its output
+    third.
+
+    ``dropout`` and ``num_classes`` are taken for the JAX signature and
+    unused: the JAX CCTNet applies no dropout, although its trainer passes
+    a dropout key (``cmlpl_tpu/models/basenet.py:163-185``)."""
+
+    def __init__(self, num_features: int = 103, dropout: float = 0.0,
+                 num_classes: int = 9, n_pc: int = 60, patch_size: int = 20,
+                 with_decoder: bool = False,
+                 compute_dtype: str = "float32"):
+        super().__init__(num_features, n_pc, compute_dtype)
+        self.with_decoder = with_decoder
+        if with_decoder:
+            self.feat_ss = nn.Linear(joint_dim(patch_size), 256)
+            # the JAX CCTNet builds its Decoder at the default patch size
+            self.decoder = Decoder(num_features, n_pc)
+
+    def forward(self, xp: torch.Tensor, x: torch.Tensor):
+        h, y = self.stem(xp, x)
+        fea1 = torch.cat([h, y], dim=1).float()
+        if self.with_decoder:
+            return fea1, fea1, self.decoder(self.feat_ss(fea1))
+        return fea1, fea1
+
+
+def _upsample_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``nn.Upsample(size)`` nearest-neighbour of NHWC ``x`` to (size,
+    size), with the JAX package's index arithmetic
+    (``cmlpl_tpu/models/basenet.py:137-142``)."""
+    _, h, w, _ = x.shape
+    rows = torch.arange(size, device=x.device) * h // size
+    cols = torch.arange(size, device=x.device) * w // size
+    return x[:, rows][:, :, cols]
+
+
+class Decoder(nn.Module):
+    """Reconstructs the spectrum and the PCA patch from a 256-d code
+    (models.py:289-320).  Returns (spectrum (B, bands), patch (B, w, w,
+    n_pc) NHWC), f32."""
+
+    def __init__(self, num_features: int = 103, n_pc: int = 60,
+                 patch_size: int = 20):
+        super().__init__()
+        self.patch_size = patch_size
+        self.p = patch_size // 4
+        self.recon_y1 = nn.Linear(256, 128)
+        self.recon_y2 = nn.Linear(128, num_features)
+        self.recon_x = nn.Linear(256, 64 * self.p * self.p)
+        self.re_conv1 = nn.Conv2d(64, 64, 3, padding=1)
+        self.re_conv2 = nn.Conv2d(64, 64, 3, padding=1)
+        self.conv0 = nn.Conv2d(64, n_pc, 1)
+
+    def forward(self, code: torch.Tensor):
+        y_re = self.recon_y2(self.recon_y1(code))
+        h = self.recon_x(code).reshape(code.shape[0], self.p, self.p, 64)
+        h = _upsample_nearest(h, 4)
+        h = self.re_conv1(h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        h = _upsample_nearest(h, self.patch_size).permute(0, 3, 1, 2)
+        x_re = self.conv0(self.re_conv2(h)).permute(0, 2, 3, 1)
+        return y_re, x_re
+
+
+class LinearClassifier(nn.Module):
+    """Linear head over the joint feature (models.py:322-330)."""
+
+    def __init__(self, num_classes: int, in_features: int = joint_dim(20)):
+        super().__init__()
+        self.fc = nn.Linear(in_features, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x)
 
 
 def dropout(z: torch.Tensor, rate: float,

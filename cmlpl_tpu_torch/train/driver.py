@@ -1,4 +1,16 @@
-"""Epoch/fit driver (``cmlpl_tpu/train/driver.py:30-39,219-273``).
+"""The trainers' shared driver (``cmlpl_tpu/train/driver.py:30-58,219-273``):
+the gather set-up, the step loop and ``fit``, common to CMLPL, CPS and CCT.
+
+A subclass provides ``_step`` (one optimisation step on the gathered
+patches and spectra), ``init_state`` and ``_format_log``.
+
+Gathers (``CMLPLConfig.gather_impl``): in "pool" mode, the default at the
+reference schedule, the unique pixels of one call (a run, an epoch or a
+step) are gathered once by CUDA kernel 1 (``ops/patch_gather.gather_pool``)
+and every step takes its rows by position; "pallas" and "pallas_bf16"
+launch a kernel twice a step; "xla" is the plain gather.  An "auto" whose
+pool is over the budget takes "pallas" on the card and "xla" on the CPU.
+Patches are inputs: nothing differentiates through a gather.
 
 The port runs every step from a Python loop.  What stays from the JAX
 driver is how much one call of the trainer covers, because that sets how
@@ -16,7 +28,21 @@ copy; the history is a list of dicts of floats, one per step.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
+
+from cmlpl_tpu_torch.data.prep import PreparedScene
+from cmlpl_tpu_torch.device import resolve_device
+from cmlpl_tpu_torch.models.basenet import BaseNet2
+from cmlpl_tpu_torch.ops.noise import make_noiser
+from cmlpl_tpu_torch.ops.patch_gather import (gather_pool,
+                                              make_train_gather,
+                                              poolify_batches,
+                                              resolve_train_gather)
+from cmlpl_tpu_torch.train.state import CMLPLConfig, NetState
+from cmlpl_tpu_torch.weights import init_basenet2_params, state_dict_from_jax
 
 
 def stack_schedule(sampler, num_epochs: int):
@@ -30,9 +56,118 @@ def stack_schedule(sampler, num_epochs: int):
     return tuple(np.stack([e[i] for e in epochs]) for i in range(3))
 
 
+def not_ported(what: str, item: int, name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md section 1, item {item} "
+        f"({name})")
+
+
 class EpochDriver:
-    """Mixin: the epoch/batch loop.  Subclasses provide ``config``,
-    ``train_run``, ``train_epoch`` and ``_format_log``."""
+    """Base of the trainers: resolves the device and the training gather,
+    runs the steps of a call and the epochs of a run."""
+
+    def __init__(self, config: CMLPLConfig, device=None):
+        if config.compute_dtype != "float32":
+            raise not_ported(f"compute_dtype={config.compute_dtype!r} "
+                             "training", 5, "bf16 training paths")
+        # under f32 compute both input dtypes keep the inputs f32
+        if config.input_dtype not in ("compute", "float32"):
+            raise ValueError(f"unknown input_dtype {config.input_dtype!r}")
+        self.device = resolve_device(device)
+        config = dataclasses.replace(config, gather_impl=resolve_train_gather(
+            config.gather_impl, self.device, num_unlabel=config.num_unlabel,
+            patch_size=config.patch_size, n_pc=config.n_pc,
+            num_labeled=config.num_label * config.num_classes))
+        self.config = config
+        self.noisy = make_noiser(config.noise_impl, config.noise)
+        if config.gather_impl != "pool":
+            self._prep_cube, self._gather = make_train_gather(
+                config.gather_impl, config.n_pc)
+
+    def _step(self, state, xp_l, x_l, xp_u, x_u, lab_y, epoch: int,
+              batch_index: int) -> dict:
+        """One optimisation step on the labeled and unlabeled patches and
+        spectra; returns its metrics as 0-d device tensors."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _update(state, loss: torch.Tensor, *opts) -> None:
+        """ONE backward over ``loss``, then each Adam steps in the given
+        order, and the state's step count advances."""
+        for opt in opts:
+            opt.zero_grad(set_to_none=True)
+        loss.backward()
+        for opt in opts:
+            opt.step()
+        state.step += 1
+
+    def _run(self, state, scene: PreparedScene, li, ly, ui, epochs,
+             first_batch: int = 0):
+        """Steps over (E, N, B) id arrays, epoch ``epochs[e]`` for row e;
+        step i of a row has batch index ``first_batch + i``.  Returns
+        (state, metrics stacked (E, N) on the device)."""
+        cfg = self.config
+        dev = self.device
+        w, cols = cfg.patch_size, scene.cols
+        if cfg.gather_impl == "pool":
+            pool, li, ui = poolify_batches(li, ui)
+            xp_src, x_src = gather_pool(
+                scene.padded_pca, scene.spectra,
+                torch.from_numpy(pool).to(dev), cols=cols, w=w)
+
+            def gather_xp(src, pos):
+                return src.index_select(0, pos)
+        else:
+            xp_src, x_src = self._prep_cube(scene.padded_pca), scene.spectra
+
+            def gather_xp(src, ids):
+                return self._gather(src, ids, cols, w)
+
+        li, ui = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                  for a in (li, ui))
+        ly = torch.from_numpy(np.asarray(ly, np.int64)).to(dev)
+        rows = []
+        for e, epoch in enumerate(epochs):
+            row = []
+            for i in range(li.shape[1]):
+                lab, unl = li[e, i], ui[e, i]
+                row.append(self._step(
+                    state, gather_xp(xp_src, lab), x_src.index_select(0, lab),
+                    gather_xp(xp_src, unl), x_src.index_select(0, unl),
+                    ly[e, i], epoch, first_batch + i))
+            rows.append(row)
+        return state, {k: torch.stack([torch.stack([m[k] for m in row])
+                                       for row in rows])
+                       for k in rows[0][0]}
+
+    # ------------------------------------------------------------------ #
+    def train_step(self, state, scene: PreparedScene, lab_idx, lab_y,
+                   unl_idx, epoch: int = 0, batch_index: int = 0):
+        """One optimisation step.  ``epoch``/``batch_index`` drive CMLPL's
+        adaptive threshold and queue warm-up (train.py:147-148, :212); CPS
+        and CCT ignore them.  Returns (state, metrics of 0-d tensors)."""
+        state, m = self._run(state, scene, np.asarray(lab_idx)[None, None],
+                             np.asarray(lab_y)[None, None],
+                             np.asarray(unl_idx)[None, None], [epoch],
+                             first_batch=batch_index)
+        return state, {k: v[0, 0] for k, v in m.items()}
+
+    def train_epoch(self, state, scene: PreparedScene, lab_idx, lab_y,
+                    unl_idx, epoch: int = 0):
+        """One epoch; batch arrays are stacked (num_batches, batch).
+        Returns (state, metrics stacked (N,))."""
+        state, m = self._run(state, scene, np.asarray(lab_idx)[None],
+                             np.asarray(lab_y)[None],
+                             np.asarray(unl_idx)[None], [epoch])
+        return state, {k: v[0] for k, v in m.items()}
+
+    def train_run(self, state, scene: PreparedScene, sampler):
+        """The whole schedule, drawn up front from the sampler (the same
+        host draws as epoch by epoch).  Returns (state, metrics stacked
+        (E, N))."""
+        li, ly, ui = stack_schedule(sampler, self.config.num_epochs)
+        return self._run(state, scene, li, ly, ui,
+                         range(self.config.num_epochs))
 
     def fit(self, state, scene, sampler, *, log_every: int = 10,
             log_fn=print, start_epoch: int = 0, on_epoch_end=None):
@@ -72,3 +207,33 @@ class EpochDriver:
             if on_epoch_end is not None:
                 on_epoch_end(epoch, state)
         return state, history
+
+
+class TwoNetDriver(EpochDriver):
+    """The dual-BaseNet2 trainers (CMLPL, CPS): each net is a BaseNet2 with
+    its own Adam, built from a JAX-layout param tree."""
+
+    def _new_net(self, params) -> NetState:
+        cfg = self.config
+        model = BaseNet2(num_features=cfg.num_features, dropout=cfg.dropout,
+                         num_classes=cfg.num_classes, n_pc=cfg.n_pc,
+                         patch_size=cfg.patch_size,
+                         compute_dtype=cfg.compute_dtype)
+        model.load_state_dict(state_dict_from_jax(params))
+        model = model.to(self.device).train()
+        # torch's Adam defaults are optax.adam's: b1 0.9, b2 0.999,
+        # eps 1e-8 outside the square root, bias-corrected
+        return NetState(model, torch.optim.Adam(model.parameters(),
+                                                lr=cfg.lr))
+
+    def init_state(self, seed):
+        """A fresh state from ``seed`` (an int or a sequence of ints, as
+        ``numpy.random.SeedSequence`` takes): both nets' weights with
+        torch-default init bounds, and the run's generator."""
+        cfg = self.config
+        k_b, k_e, k_run = np.random.SeedSequence(seed).spawn(3)
+        shape = dict(n_pc=cfg.n_pc, num_features=cfg.num_features,
+                     num_classes=cfg.num_classes, patch_size=cfg.patch_size)
+        return self.new_state(init_basenet2_params(k_b, **shape),
+                              init_basenet2_params(k_e, **shape),
+                              int(k_run.generate_state(1)[0]))

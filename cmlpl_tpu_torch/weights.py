@@ -1,48 +1,89 @@
-"""Carrying BaseNet2 weights between the JAX package and the port.
+"""Carrying weights and trainer states between the JAX package and the port.
 
 The interchange format is the flax param tree in the JAX layout: conv
-kernels (H, W, in, out), dense kernels (in, out), one ``bias`` per layer.
-On disk it is a flat ``.npz`` whose keys are ``"<layer>/<leaf>"`` (for
-example ``"conv1/kernel"``), so a JAX user can write one from
+kernels (H, W, in, out), dense kernels (in, out), one ``bias`` per layer,
+layers nested as the flax modules are (BaseNet2's ``conv1``, the CCT
+tree's ``encoder/conv1`` and ``dec_base/fc``).  The torch ``state_dict``
+key of a layer is its path joined by ``.`` (``encoder.conv1.weight``).  On
+disk a tree is a flat ``.npz`` whose keys are the paths joined by ``/``
+(for example ``"conv1/kernel"``), so a JAX user can write one from
 ``jax.device_get(params)`` with numpy alone, and the port reads it without
 JAX.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import numpy as np
 import torch
 
-CONV_LAYERS = ("conv0", "conv1", "conv2")
-DENSE_LAYERS = ("feat_spe", "classifier")
+from cmlpl_tpu_torch.models.basenet import FEAT_DIM, joint_dim
 
 
-def basenet2_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
-    """BaseNet2 ``state_dict`` from the flax param tree (nested dicts of
-    arrays): conv HWIO -> OIHW, dense (in, out) -> (out, in)."""
+def state_dict_from_jax(params, prefix: str = "") -> dict[str, torch.Tensor]:
+    """``state_dict`` of a flax param tree (nested mappings of arrays):
+    every mapping that holds a ``kernel`` is a layer; 4-D kernels are convs
+    (HWIO -> OIHW), 2-D ones dense ((in, out) -> (out, in))."""
     sd = {}
-    for name in CONV_LAYERS + DENSE_LAYERS:
-        k = np.asarray(params[name]["kernel"], np.float32)
-        k = k.transpose(3, 2, 0, 1) if name in CONV_LAYERS else k.T
-        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
-        sd[f"{name}.bias"] = torch.from_numpy(
-            np.asarray(params[name]["bias"], np.float32).copy())
+    for name, sub in params.items():
+        path = prefix + name
+        if "kernel" not in sub:
+            sd.update(state_dict_from_jax(sub, path + "."))
+            continue
+        k = np.asarray(sub["kernel"], np.float32)
+        k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+        sd[f"{path}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+        sd[f"{path}.bias"] = torch.from_numpy(
+            np.asarray(sub["bias"], np.float32).copy())
     return sd
 
 
-def basenet2_params_to_jax(state_dict) -> dict:
-    """The flax param tree (numpy f32) of a BaseNet2 ``state_dict``: the
-    inverse of :func:`basenet2_state_dict_from_jax` (conv OIHW -> HWIO,
-    dense (out, in) -> (in, out))."""
-    params = {}
-    for name in CONV_LAYERS + DENSE_LAYERS:
-        w = state_dict[f"{name}.weight"].detach().cpu().numpy()
-        k = w.transpose(2, 3, 1, 0) if name in CONV_LAYERS else w.T
-        params[name] = {
-            "kernel": np.ascontiguousarray(k, np.float32),
-            "bias": state_dict[f"{name}.bias"].detach().cpu().numpy()
-            .astype(np.float32)}
+def params_to_jax(state_dict) -> dict:
+    """The flax param tree (numpy f32) of a ``state_dict``: the inverse of
+    :func:`state_dict_from_jax` (conv OIHW -> HWIO, dense (out, in) ->
+    (in, out))."""
+    params: dict = {}
+    for key, w in state_dict.items():
+        *path, leaf = key.split(".")
+        if leaf != "weight":
+            continue
+        w = w.detach().cpu().numpy()
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        node["kernel"] = np.ascontiguousarray(
+            w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T, np.float32)
+        node["bias"] = (state_dict[".".join(path + ["bias"])].detach().cpu()
+                        .numpy().astype(np.float32))
     return params
+
+
+# the names the two had when they carried BaseNet2's tree only
+basenet2_state_dict_from_jax = state_dict_from_jax
+basenet2_params_to_jax = params_to_jax
+
+
+def _carry_adam(opt: torch.optim.Adam, module: torch.nn.Module,
+                adam) -> None:
+    """One optax ``ScaleByAdamState`` into ``opt``'s state for the params of
+    ``module`` that its moments name (``mu``/``nu``/``count`` -> torch
+    ``exp_avg``/``exp_avg_sq``/``step``, under the params' transposes)."""
+    step = torch.tensor(float(np.asarray(adam.count)))
+    mu = state_dict_from_jax(adam.mu)
+    nu = state_dict_from_jax(adam.nu)
+    params = dict(module.named_parameters())
+    for key, m in mu.items():
+        p = params[key]
+        opt.state[p] = {"step": step.clone(), "exp_avg": m.to(p.device),
+                        "exp_avg_sq": nu[key].to(p.device)}
+
+
+def _two_nets_from_jax(tree, state) -> None:
+    """Both nets' Adam states and the step of a dual-BaseNet2 JAX state."""
+    for jnet, net in ((tree.net_b, state.net_b), (tree.net_e, state.net_e)):
+        _carry_adam(net.opt, net.model, jnet.opt_state[0])
+    state.step = int(np.asarray(tree.step))
 
 
 def cmlpl_state_from_jax(tree, trainer, run_seed: int = 0):
@@ -50,43 +91,56 @@ def cmlpl_state_from_jax(tree, trainer, run_seed: int = 0):
     JAX package's ``CMLPLTrainState``, built by ``trainer``
     (:class:`cmlpl_tpu_torch.train.cmlpl.CMLPLTrainer`).
 
-    Carries both nets' params; their Adam states (optax ``mu``/``nu``/
-    ``count`` -> torch ``exp_avg``/``exp_avg_sq``/``step``, under the
-    params' transposes); both queues and ``step``.  The JAX key has no
-    torch counterpart: the generator is seeded with ``run_seed``."""
+    Carries both nets' params and Adam states, both queues and ``step``.
+    The JAX key has no torch counterpart: the generator is seeded with
+    ``run_seed``."""
     state = trainer.new_state(tree.net_b.params, tree.net_e.params,
                               run_seed)
-    for jnet, net in ((tree.net_b, state.net_b), (tree.net_e, state.net_e)):
-        adam = jnet.opt_state[0]     # (ScaleByAdamState, EmptyState)
-        step = torch.tensor(float(np.asarray(adam.count)))
-        mu = basenet2_state_dict_from_jax(adam.mu)
-        nu = basenet2_state_dict_from_jax(adam.nu)
-        for key, p in net.model.named_parameters():
-            net.opt.state[p] = {"step": step.clone(),
-                                "exp_avg": mu[key].to(p.device),
-                                "exp_avg_sq": nu[key].to(p.device)}
+    _two_nets_from_jax(tree, state)
     for jq, q in ((tree.queue_w, state.queue_w),
                   (tree.queue_s, state.queue_s)):
         q.feats.copy_(torch.tensor(np.asarray(jq.feats, np.float32)))
         q.probs.copy_(torch.tensor(np.asarray(jq.probs, np.float32)))
         q.ptr = int(np.asarray(jq.ptr))
+    return state
+
+
+def cps_state_from_jax(tree, trainer, run_seed: int = 0):
+    """The port's CPS state from a numpy copy of the JAX package's
+    ``CPSTrainState``, built by ``trainer``
+    (:class:`cmlpl_tpu_torch.train.cps.CPSTrainer`): both nets' params and
+    Adam states, and ``step``; the generator is seeded with ``run_seed``."""
+    state = trainer.new_state(tree.net_b.params, tree.net_e.params,
+                              run_seed)
+    _two_nets_from_jax(tree, state)
+    return state
+
+
+def cct_state_from_jax(tree, trainer, run_seed: int = 0):
+    """The port's CCT state from a numpy copy of the JAX package's
+    ``CCTTrainState``, built by ``trainer``
+    (:class:`cmlpl_tpu_torch.train.cct.CCTTrainer`): the params tree, the
+    two overlapping Adam states (``opt_base`` over encoder and
+    ``dec_base``, ``opt_aug`` over encoder, ``dec1`` and ``dec2``; the
+    encoder's params have moments in both) and ``step``; the generator is
+    seeded with ``run_seed``."""
+    state = trainer.new_state(tree.params, run_seed)
+    _carry_adam(state.opt_base, state.model, tree.opt_base[0])
+    _carry_adam(state.opt_aug, state.model, tree.opt_aug[0])
     state.step = int(np.asarray(tree.step))
     return state
 
 
-def init_basenet2_params(seed, *, n_pc: int, num_features: int,
-                         num_classes: int, patch_size: int = 20) -> dict:
-    """Random BaseNet2 params in the JAX layout, drawn from numpy with
-    torch's default init bounds, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-    weights and biases (``cmlpl_tpu/core/init.py``).  ``seed`` is anything
-    ``numpy.random.default_rng`` takes."""
-    rng = np.random.default_rng(seed)
-    spatial = 64 * (patch_size // 4) ** 2
-    shapes = {"conv0": (1, 1, n_pc, 64), "conv1": (3, 3, 64, 64),
-              "conv2": (3, 3, 64, 64), "feat_spe": (num_features, 1024),
-              "classifier": (spatial + 1024, num_classes)}
+def _init_layers(rng, shapes: Mapping) -> dict:
+    """Params of the layers in ``shapes`` (kernel shapes, nested as the
+    tree), drawn in order with torch's default init bounds,
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases
+    (``cmlpl_tpu/core/init.py``)."""
     params = {}
     for name, shape in shapes.items():
+        if isinstance(shape, Mapping):
+            params[name] = _init_layers(rng, shape)
+            continue
         bound = 1.0 / np.sqrt(int(np.prod(shape[:-1])))
         params[name] = {
             "kernel": rng.uniform(-bound, bound, shape).astype(np.float32),
@@ -95,19 +149,54 @@ def init_basenet2_params(seed, *, n_pc: int, num_features: int,
     return params
 
 
+def _stem_shapes(n_pc: int, num_features: int) -> dict:
+    return {"conv0": (1, 1, n_pc, 64), "conv1": (3, 3, 64, 64),
+            "conv2": (3, 3, 64, 64), "feat_spe": (num_features, FEAT_DIM)}
+
+
+def init_basenet2_params(seed, *, n_pc: int, num_features: int,
+                         num_classes: int, patch_size: int = 20) -> dict:
+    """Random BaseNet2 params in the JAX layout with torch-default init
+    bounds.  ``seed`` is anything ``numpy.random.default_rng`` takes."""
+    shapes = dict(_stem_shapes(n_pc, num_features),
+                  classifier=(joint_dim(patch_size), num_classes))
+    return _init_layers(np.random.default_rng(seed), shapes)
+
+
+def init_cct_params(seed, *, n_pc: int, num_features: int,
+                    num_classes: int, patch_size: int = 20) -> dict:
+    """Random CCT params in the JAX layout (the tree of
+    ``cmlpl_tpu/train/cct.py``'s state: ``encoder`` without the decoder,
+    and the heads ``dec_base``, ``dec1``, ``dec2``, each ``{"fc": ...}``),
+    with torch-default init bounds."""
+    head = {"fc": (joint_dim(patch_size), num_classes)}
+    shapes = {"encoder": _stem_shapes(n_pc, num_features),
+              "dec_base": head, "dec1": head, "dec2": head}
+    return _init_layers(np.random.default_rng(seed), shapes)
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for name, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, f"{prefix}{name}/")
+        else:
+            yield f"{prefix}{name}", np.asarray(v)
+
+
 def save_params_npz(path: str, params) -> None:
-    """Write a param tree as a flat ``"<layer>/<leaf>"`` npz (JAX layout)."""
-    flat = {f"{layer}/{leaf}": np.asarray(v)
-            for layer, leaves in params.items()
-            for leaf, v in leaves.items()}
-    np.savez(path, **flat)
+    """Write a param tree as a flat npz keyed by ``/``-joined paths (JAX
+    layout)."""
+    np.savez(path, **dict(_flatten(params)))
 
 
 def load_params_npz(path: str) -> dict:
-    """Read a flat ``"<layer>/<leaf>"`` npz back into a nested param tree."""
+    """Read a flat ``/``-keyed npz back into a nested param tree."""
     params: dict = {}
     with np.load(path) as z:
         for key in z.files:
-            layer, leaf = key.split("/")
-            params.setdefault(layer, {})[leaf] = z[key]
+            *path_, leaf = key.split("/")
+            node = params
+            for name in path_:
+                node = node.setdefault(name, {})
+            node[leaf] = z[key]
     return params

@@ -96,12 +96,6 @@ def test_bf16_gather_map_equals_quantised_xla_map(setup):
     np.testing.assert_array_equal(got, want)
 
 
-def test_dense_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ScenePredictor(lambda xp, x: None, patch_size=W, cols=48,
-                       gather="dense")
-
-
 def test_cal_accuracy_equal(setup):
     labels = setup["gt"].reshape(-1).astype(np.int32)
     splits = generate_splits(labels, num_label=5)

@@ -34,6 +34,8 @@ from cmlpl_tpu.train import CMLPLConfig as JaxConfig
 from cmlpl_tpu.train import CMLPLTrainer as JaxTrainer
 from cmlpl_tpu_torch.cli import predict
 from cmlpl_tpu_torch.cli import train as cli_train
+from cmlpl_tpu_torch.cli import train_cct as cli_train_cct
+from cmlpl_tpu_torch.cli import train_cps as cli_train_cps
 from cmlpl_tpu_torch.data.io import synthetic_scene
 from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
 from cmlpl_tpu_torch.data.prep import prepare_scene
@@ -281,9 +283,11 @@ def test_cli_train_writes_its_outputs(tmp_path, capsys):
     assert open(pred_svg, "rb").read() == svg.read_bytes()
 
 
-def test_cli_train_needs_the_card_unless_asked(monkeypatch, tmp_path):
+@pytest.mark.parametrize("cli", [cli_train, cli_train_cps, cli_train_cct],
+                         ids=["train", "train_cps", "train_cct"])
+def test_cli_train_needs_the_card_unless_asked(monkeypatch, tmp_path, cli):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli_train.main(["--dataID", "0", "--n_PC", str(N_PC)])
+        cli.main(["--dataID", "0", "--n_PC", str(N_PC)])
     assert not os.listdir(tmp_path)
