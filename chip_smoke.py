@@ -16,7 +16,14 @@ card against the CPU; ``cli.train`` with the default 20-epoch schedule and
 its pool gather (its net B weights then served), one epoch with each
 per-step kernel gather; ``cli.train_cps`` and ``cli.train_cct`` with the
 default schedule; and the OA of 12 seeds of each CLI against the
-reference's (``docs/{cmlpl,cps,cct}_ref_seeds_r4.json``).  Every phase
+reference's (``docs/{cmlpl,cps,cct}_ref_seeds_r4.json``).  Then bf16
+training: ``cli.train --compute_dtype bfloat16`` with the default schedule
+(its pool by the bf16 kernel), one epoch each of ``cli.train_cps`` and
+``cli.train_cct`` in bf16, one bf16 step of each trainer on the card
+against the CPU, and the 12-seed OA of bf16 ``cli.train``; a 4-epoch
+``cli.train`` with a checkpoint an epoch, a fault injected after epoch 2
+and one restart; one epoch with each extra objective and with the
+augmentations, and a stacked against an unstacked CMLPL step.  Every phase
 prints one JSON line; the card's name and power limit, then a ``kernels``
 line (launches on the main path, error, times and bounds) come before the
 last line, ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -66,6 +73,33 @@ ILL_CONDITIONED_MAX_SHARE = 1e-4
 # order from run to run, so a correct port's seeds wander; a fault in the
 # algorithm moves OA by far more
 AB_MAX_DIFF = 3.0
+# bf16 card vs CPU, 1 step: cuDNN's and oneDNN's bf16 layers round their
+# outputs to an 8-bit mantissa (2**-8 = 3.9e-3 of their size) at other
+# points, so the losses, batch means of such outputs, agree to a few of
+# those (the CPU tests hold the port to JAX at 2e-3).  The accuracy and
+# mask rate count argmax and threshold decisions, which that rounding
+# flips wherever two logits nearly tie, as they do at a random init: they
+# are reported, not held.  The gradients sum up to 10^5 products of
+# bf16-rounded operands: the two devices' step-1 gradients may differ by
+# at most BF16_GRAD_FACTOR times what bf16 itself moves them by (bf16 vs
+# the f32 step from the same state, on either device; each as the largest
+# difference of a tensor over its largest entry).  Adam's first step moves
+# each weight by lr times the sign of its gradient, so a weight differs by
+# 0 or by 2 lr: all within 2 lr, and at most BF16_FLIPPED_MAX_SHARE of
+# them by more than lr / 2 (the gradients of opposite sign; 0.2% in the
+# CPU tests' 4 steps against JAX)
+BF16_LOSS_RTOL, BF16_LOSS_ATOL = 5e-3, 5e-3
+BF16_DECISIONS = ("acc", "mask_rate")
+BF16_GRAD_FACTOR = 2.0
+BF16_FLIPPED_MAX_SHARE = 2e-2
+# stacked vs two forwards on the card, f32, noise and dropout off: the
+# two nets' convolutions run as one grouped convolution, which the library
+# may compute by another algorithm, so sums in another order; the card-vs-
+# CPU bounds.  (With the noise views on, the first step's weight gradients
+# cancel so far that two convolution libraries' algorithms disagree by
+# 1-2% of a tensor's largest on the CPU for the same two-forward step)
+STACK_LOSS_RTOL, STACK_GRAD_TOL = CARD_CPU_LOSS_RTOL, CARD_CPU_GRAD_TOL
+RESUME_EPOCHS, FAIL_AT_EPOCH = 4, 2
 
 
 class CheckFailed(RuntimeError):
@@ -151,6 +185,50 @@ def call_device_ms(fn, args_list):
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def tf32_flags() -> tuple:
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def phase_tf32_scope(device, flags_at_start) -> None:
+    """Inside a BaseNet2's convolutions on the card the TF32 switches follow
+    its compute dtype; building and running a bf16 then an f32 model leaves
+    the process's switches as the smoke found them."""
+    import torch.nn.functional as F
+
+    from cmlpl_tpu_torch.models.basenet import BaseNet2
+
+    seen = []
+    conv2d = F.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(tf32_flags())
+        return conv2d(*args, **kwargs)
+
+    xp = torch.zeros(2, W, W, N_PC, device=device)
+    x = torch.zeros(2, 103, device=device)
+    inside = {}
+    F.conv2d = spy
+    try:
+        for dtype in ("bfloat16", "float32"):
+            seen.clear()
+            model = BaseNet2(n_pc=N_PC, patch_size=W,
+                             compute_dtype=dtype).to(device)
+            with torch.no_grad():
+                model(xp, x)
+            inside[dtype] = sorted(set(seen))
+            require(tf32_flags() == flags_at_start,
+                    f"{dtype} model left TF32 at {tf32_flags()}")
+    finally:
+        F.conv2d = conv2d
+    require(inside == {"bfloat16": [(True, True)],
+                       "float32": [(False, False)]},
+            f"TF32 inside the models' convolutions: {inside}")
+    emit({"phase": "tf32_scope", "flags_at_start": list(flags_at_start),
+          "inside_convolutions": {k: [list(f) for f in v]
+                                  for k, v in inside.items()}})
 
 
 def map_tiles(num_pixels: int, device) -> list[torch.Tensor]:
@@ -350,9 +428,9 @@ def default_schedule(labels, epochs: int):
 def phase_train_gather(scene, labels, device):
     """Both kernels vs the plain gather, bitwise, at the training shapes:
     the default schedule's pool on the synthetic PaviaU scene (the port's
-    sampler, then poolify_batches) and B = 128 random ids; then the times
-    of each shape beside the plain gather's, the library call's and the
-    bound."""
+    sampler, then poolify_batches; f32, and bf16 as the bf16 trainers
+    gather it) and B = 128 random ids; then the times of each shape beside
+    the plain gather's, the library call's and the bound."""
     from cmlpl_tpu_torch.data.patches import gather_patches
     from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                                   gather_patches_f32,
@@ -369,12 +447,21 @@ def phase_train_gather(scene, labels, device):
                 for _ in range(156)]
     f32 = scene.padded_pca
     bf16 = f32.to(torch.bfloat16)
+    # the bf16 trainers' pool: kernel 2 over the bf16 cube, bitwise the
+    # cast of kernel 1's f32 pool
+    pool16 = gather_patches_bf16(bf16, pool, cols=cols, w=W)
+    pool32 = gather_patches_f32(f32, pool, cols=cols, w=W)
+    require(torch.equal(bits(pool16), bits(pool32.to(torch.bfloat16))),
+            "bf16 pool != the bf16 cast of the f32 pool")
+    del pool16, pool32
+    emit({"phase": "train_gather", "case": "bf16 pool vs cast f32 pool",
+          "bitwise_equal": True})
     report = {}
     for name, wrapper, cube, cases in (
             ("patch_gather_f32", gather_patches_f32, f32,
              {"pool B=10240": [pool], "step B=128": step_ids}),
             ("patch_gather_bf16", gather_patches_bf16, bf16,
-             {"step B=128": step_ids})):
+             {"pool B=10240": [pool], "step B=128": step_ids})):
         for label, ids in cases.items():
             got = wrapper(cube, ids[0], cols=cols, w=W)
             want = gather_patches(cube, ids[0], cols=cols, w=W)
@@ -406,18 +493,25 @@ def weights_and_adams(state):
             for p in state.model.parameters()], 2
 
 
-def phase_card_vs_cpu(cube, gt, device, algo: str):
-    """Three steps of ``algo``'s trainer from one state on the card and on
-    the CPU, pool mode, full width, noise 0, dropout 0, TF32 off: the
-    losses, the first step's gradients and the updated params agree."""
+def phase_card_vs_cpu(cube, gt, device, algo: str, flags_at_start,
+                      compute_dtype: str = "float32", f32_grads=None):
+    """Steps of ``algo``'s trainer from one state on the card and on the
+    CPU, pool mode, full width, noise 0, dropout 0: the losses, the first
+    step's gradients and the updated params agree.  f32: 3 steps, TF32 off
+    inside the step; bf16: 1 step, with bf16's tolerances, its gradients
+    held against ``f32_grads``, the (card, CPU) step-1 gradients of the
+    f32 phase.  Returns the (card, CPU) step-1 gradients."""
     from cmlpl_tpu_torch.data.prep import prepare_scene
     from cmlpl_tpu_torch.train import CCTTrainer, CMLPLTrainer, CPSTrainer
     from cmlpl_tpu_torch.train.state import CMLPLConfig
 
     trainer_cls = {"cmlpl": CMLPLTrainer, "cps": CPSTrainer,
                    "cct": CCTTrainer}[algo]
-    cfg = CMLPLConfig(noise=0.0, dropout=0.0, gather_impl="pool")
-    li, ly, ui = (a[0, :3] for a in default_schedule(
+    bf16 = compute_dtype == "bfloat16"
+    steps = 1 if bf16 else 3
+    cfg = CMLPLConfig(noise=0.0, dropout=0.0, gather_impl="pool",
+                      compute_dtype=compute_dtype)
+    li, ly, ui = (a[0, :steps] for a in default_schedule(
         gt.reshape(-1).astype(np.int32), 1))
 
     def run(dev):
@@ -426,29 +520,33 @@ def phase_card_vs_cpu(cube, gt, device, algo: str):
                               n_pc=N_PC, device=dev)
         trainer = trainer_cls(cfg, device=dev)
         state = trainer.init_state(SEED)
-        require(not torch.backends.cudnn.allow_tf32
-                and not torch.backends.cuda.matmul.allow_tf32, "TF32 on")
         weights, adams = weights_and_adams(state)
         # step 1, then steps 2-3 (the same run as one 3-step call)
-        state, m1 = trainer.train_epoch(state, scene, li[:1], ly[:1],
-                                        ui[:1], epoch=1)
+        state, m = trainer.train_epoch(state, scene, li[:1], ly[:1], ui[:1],
+                                       epoch=1)
         grads = [p.grad.cpu().clone() for p, _ in weights]
-        state, m23 = trainer.train_epoch(state, scene, li[1:], ly[1:],
-                                         ui[1:], epoch=1)
+        if steps > 1:
+            state, m23 = trainer.train_epoch(state, scene, li[1:], ly[1:],
+                                             ui[1:], epoch=1)
+            m = {k: torch.cat([m[k], m23[k]]) for k in m}
+        require(tf32_flags() == flags_at_start,
+                f"the trainer left TF32 at {tf32_flags()}")
         params = [p.detach().cpu().clone() for p, _ in weights]
         # each weight's gradient RMS: Adam's bias-corrected second moment
         rms = [(opt.state[p]["exp_avg_sq"].cpu()
                 / (1 - opt.defaults["betas"][1]
                    ** float(opt.state[p]["step"]))).sqrt()
                for p, opt in weights]
-        return ({k: torch.cat([m1[k], m23[k]]).cpu().numpy() for k in m1},
+        return ({k: v.cpu().numpy() for k, v in m.items()},
                 grads, params, rms, adams, time.perf_counter() - t0)
 
     (mc, gc, pc, rms_c, adams, card_s), (mh, gh, ph, rms, _, cpu_s) = (
         run(device), run(torch.device("cpu")))
     loss_err = {k: float(np.abs(mc[k] - mh[k]).max()) for k in mc}
-    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                   for a, b in zip(gc, gh))
+    grad_err = grad_gap(gc, gh)
+    # bf16's own move of the step-1 gradients, on each device
+    bf16_move = ({"card": grad_gap(gc, f32_grads[0]),
+                  "cpu": grad_gap(gh, f32_grads[1])} if bf16 else None)
     # weights with no gradient in any step on either side (a head's
     # columns whose features are 0 on every row) never move: held equal
     still = [(r == 0) & (q == 0) for r, q in zip(rms, rms_c)]
@@ -463,24 +561,49 @@ def phase_card_vs_cpu(cube, gt, device, algo: str):
     tight = [(a - b).abs() <= CARD_CPU_PARAM_ATOL * adams
              + CARD_CPU_PARAM_RTOL * b.abs() for a, b in zip(pc, ph)]
     param_err = {
+        "max_abs_diff": worst(diff),
         "well_conditioned": worst(d[m] for d, m in zip(diff, well)),
         "ill_conditioned": worst(d[~m] for d, m in zip(diff, well)),
         "ill_conditioned_weights": int(sum(int((~m).sum()) for m in well)),
         "held_to_adams_reach": int(sum(int((~m & ~t).sum())
                                        for m, t in zip(well, tight))),
+        "beyond_half_lr": int(sum(int((d > cfg.lr / 2).sum())
+                                  for d in diff)),
         "no_gradient_weights": int(sum(int(z.sum()) for z in still)),
         "no_gradient_max_abs_diff": worst(d[z] for d, z in zip(diff, still)),
         "weights": int(sum(d.numel() for d in diff)),
         "above_1e-5": int(sum(int((d > 1e-5).sum()) for d in diff))}
     name = "train" if algo == "cmlpl" else f"train_{algo}"
-    emit({"phase": f"{name}_card_vs_cpu", "steps": 3, "gather": "pool",
+    emit({"phase": f"{name}_card_vs_cpu" + ("_bf16" if bf16 else ""),
+          "steps": steps, "gather": "pool", "compute_dtype": compute_dtype,
           "losses_card": {k: mc[k].tolist() for k in mc},
+          "losses_cpu": {k: mh[k].tolist() for k in mh},
           "max_abs_diff": loss_err,
           "step1_grad_max_diff_of_tensor_max": grad_err,
+          "step1_grad_bf16_vs_f32_of_tensor_max": bf16_move,
           "params_max_abs_diff": param_err,
           "card_s": card_s, "cpu_s": cpu_s})
     for k in mc:
         require(np.all(np.isfinite(mc[k])), f"{algo}: card {k} not finite")
+    require(param_err["no_gradient_max_abs_diff"] == 0,
+            f"{algo}: a weight with no gradient moved: {param_err}")
+    if bf16:
+        for k in set(mc) - set(BF16_DECISIONS):
+            require(np.allclose(mc[k], mh[k], rtol=BF16_LOSS_RTOL,
+                                atol=BF16_LOSS_ATOL),
+                    f"{algo} bf16: card vs CPU {k}: {mc[k]} vs {mh[k]}")
+        require(grad_err <= BF16_GRAD_FACTOR * max(bf16_move.values()),
+                f"{algo} bf16: card vs CPU step-1 gradients: {grad_err} of "
+                f"the tensor's max; bf16 vs f32: {bf16_move}")
+        # Adam's first step: lr times the gradient's sign, from each Adam
+        require(param_err["max_abs_diff"] <= 2 * adams * cfg.lr + 1e-6,
+                f"{algo} bf16: card vs CPU params: {param_err}")
+        require(param_err["beyond_half_lr"]
+                <= BF16_FLIPPED_MAX_SHARE * param_err["weights"],
+                f"{algo} bf16: too many weights stepped the other way: "
+                f"{param_err}")
+        return gc, gh
+    for k in mc:
         require(np.allclose(mc[k], mh[k], rtol=CARD_CPU_LOSS_RTOL,
                             atol=CARD_CPU_LOSS_ATOL),
                 f"{algo}: card vs CPU {k}: {mc[k]} vs {mh[k]}")
@@ -489,8 +612,6 @@ def phase_card_vs_cpu(cube, gt, device, algo: str):
             "tensor's max")
     require(all(t[m].all() for t, m in zip(tight, well)),
             f"{algo}: card vs CPU params: {param_err}")
-    require(param_err["no_gradient_max_abs_diff"] == 0,
-            f"{algo}: a weight with no gradient moved: {param_err}")
     # Adam's reach: up to lr a step on either side, from each Adam that
     # steps the weight (CCT's encoder takes two: 3 * 2 * 2 * lr)
     require(param_err["ill_conditioned"] <= 3 * 2 * adams * cfg.lr,
@@ -499,40 +620,50 @@ def phase_card_vs_cpu(cube, gt, device, algo: str):
             <= ILL_CONDITIONED_MAX_SHARE * param_err["weights"],
             f"{algo}: card vs CPU: too many weights held only to Adam's "
             f"reach: {param_err}")
+    return gc, gh
 
 
-def train_cli_run(main_fn, tmp, name: str, counter_fn, maps):
+def grad_gap(got, want) -> float:
+    """The largest difference of two gradient lists, each tensor's over its
+    largest entry."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(got, want))
+
+
+def train_cli_run(main_fn, tmp, name: str, counter_fn, maps, extra=(),
+                  epochs: int = TRAIN_EPOCHS):
     """``main_fn`` (a training CLI's main) at full width on dataID 1 (the
     .mat is absent: the synthetic PaviaU scene) with the defaults but
-    TRAIN_EPOCHS, and ``--metrics_csv``; the gather counts reset first.
-    Returns (its result, its report), after checking the step count, that
-    the history is finite and that the last epoch's mean cls_loss is below
-    the first's."""
+    ``epochs`` and the flags ``extra``, and ``--metrics_csv``; the gather
+    counts reset first.  Returns (its result, its report), after checking
+    the step count, that the history is finite and, over more than one
+    epoch, that the last epoch's mean cls_loss is below the first's."""
     from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
 
     os.makedirs(tmp, exist_ok=True)
     metrics = os.path.join(tmp, f"{name}_metrics.csv")
     argv = ["--dataID", str(DATA_ID), "--data_root", tmp,
-            "--save_path_prefix", tmp, "--num_epochs", str(TRAIN_EPOCHS),
-            "--metrics_csv", metrics]
+            "--save_path_prefix", tmp, "--num_epochs", str(epochs),
+            "--metrics_csv", metrics, *extra]
     for wrapper in WRAPPERS:
         wrapper.launches = 0
     result, lines, counts = run_cli(main_fn, argv + [
         "--weights_out", os.path.join(tmp, f"{name}.npz")], counter_fn)
     total = counter_fn()
     train_s, train_launches = line_value(lines, counts, "training time")
-    steps = TRAIN_EPOCHS * 78
+    steps = epochs * 78
     require(f"({steps} steps)" in next(ln for ln in lines
                                        if ln.startswith("training time")),
             f"{name}: step count")
     hist = read_history(metrics)
     require(all(np.isfinite(v).all() for v in hist.values()),
             f"{name}: a training metric is not finite")
-    cls = hist["cls_loss"].reshape(TRAIN_EPOCHS, 78).mean(axis=1)
-    require(cls[-1] < cls[0], f"{name}: cls_loss by epoch {cls}")
+    cls = hist["cls_loss"].reshape(epochs, 78).mean(axis=1)
+    require(epochs == 1 or cls[-1] < cls[0],
+            f"{name}: cls_loss by epoch {cls}")
     return result, {
-        "epochs": TRAIN_EPOCHS, "steps": steps, "train_s": train_s,
-        "ms_per_step": train_s / steps * 1e3,
+        "epochs": epochs, "steps": steps, "flags": list(extra),
+        "train_s": train_s, "ms_per_step": train_s / steps * 1e3,
         "train_patches_per_s": steps * (128 + 128) / train_s,
         "map_s": {m: line_value(lines, counts,
                                 f"full-scene inference time ({m})")[0]
@@ -541,7 +672,9 @@ def train_cli_run(main_fn, tmp, name: str, counter_fn, maps):
                               "gather_patches_bf16": train_launches[1]},
         "launches_with_maps": {"gather_patches_f32": total[0],
                                "gather_patches_bf16": total[1]},
-        "cls_loss_by_epoch": cls.tolist()}
+        "cls_loss_by_epoch": cls.tolist(),
+        "last_epoch_mean": {k: float(v[-78:].mean()) for k, v in hist.items()
+                            if k != "step"}}
 
 
 def profiled_window(trainer, tscene) -> dict:
@@ -563,10 +696,14 @@ def profiled_window(trainer, tscene) -> dict:
     window_ms = (time.perf_counter() - t0) * 1e3
     busy_ms = sum(dev_ms.values())
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:10]
+    # kernels whose names say they take bf16 operands (cuBLAS/cuDNN
+    # tensor-core GEMMs and convolutions name their input type)
+    bf16_ms = sum(v for k, v in dev_ms.items() if "bf16" in k.lower())
     return {"steps": 20, "wall_ms_unprofiled": window_ms,
             "wall_ms_profiled": prof_wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / window_ms,
-            "top_device_ops_ms": [{"name": k[:90], "ms": v,
+            "bf16_named_kernels_ms": bf16_ms,
+            "top_device_ops_ms": [{"name": k[:110], "ms": v,
                                    "calls": calls[k]} for k, v in top]}
 
 
@@ -746,14 +883,14 @@ def ab_inputs(tmp):
     return ab, scene_npz
 
 
-def phase_ab(ab, scene_npz, algo: str):
-    """OA of ``algo``'s CLI vs the reference's own PyTorch code on the hard
-    synthetic scene (``docs/<algo>_ref_seeds_r4.json``): seeds
-    1088..1099, the oracle's scene, splits and flags
-    (``scripts/reference_oracle.py:297-317``: the same for the three
-    CLIs).  CCT has one net, so its ``oa_b`` is empty; its reference
-    spread is wide (sd 3.87), so its gate is the verdict's two standard
-    errors where that is above AB_MAX_DIFF."""
+def phase_ab(ab, scene_npz, algo: str, extra=(), phase=None):
+    """OA of ``algo``'s CLI (with the flags ``extra``) vs the reference's
+    own PyTorch code on the hard synthetic scene
+    (``docs/<algo>_ref_seeds_r4.json``): seeds 1088..1099, the oracle's
+    scene, splits and flags (``scripts/reference_oracle.py:297-317``: the
+    same for the three CLIs).  CCT has one net, so its ``oa_b`` is empty;
+    its reference spread is wide (sd 3.87), so its gate is the verdict's
+    two standard errors where that is above AB_MAX_DIFF."""
     from cmlpl_tpu_torch.cli import train, train_cct, train_cps
 
     main_fn = {"cmlpl": train.main, "cps": train_cps.main,
@@ -770,7 +907,7 @@ def phase_ab(ab, scene_npz, algo: str):
             "--labeled_batch_size", "64", "--unlabeled_batch_size", "64",
             "--num_unlabel", "2048", "--val_batch_size", "512",
             "--dropout", "0.8", "--lr", "0.0005", "--print_per_batches", "0",
-            "--seed", str(1088 + s), "--save_path_prefix", ab],
+            "--seed", str(1088 + s), "--save_path_prefix", ab, *extra],
             lambda: None)
         ours["sec_per_seed"].append(time.perf_counter() - t0)
         accs = (result,) if algo == "cct" else result
@@ -787,10 +924,202 @@ def phase_ab(ab, scene_npz, algo: str):
     require(abs(diff) <= gate,
             f"{algo}: mean OA {diff:+.2f} points from the reference's "
             f"(gate {gate:.2f})")
-    emit({"phase": "train_ab" if algo == "cmlpl" else f"{algo}_ab",
+    emit({"phase": phase or ("train_ab" if algo == "cmlpl"
+                             else f"{algo}_ab"), "flags": list(extra),
           "ours": ours, "verdict": v, "mean_diff_unrounded": diff,
           "two_se": two_se, "gate": gate})
     return v
+
+
+def phase_train_bf16(tmp, tscene, counter_fn):
+    """bf16 training at full width: cli.train with the default 20-epoch
+    schedule, whose pool is kernel 2's (one launch, none of kernel 1; each
+    map, f32-gathered, adds 406 of kernel 1), a profiled window of its
+    steps, then one epoch each of cli.train_cps and cli.train_cct.
+    Returns the bf16 pool launches of each."""
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.cli import train_cct, train_cps
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    bf16 = ["--compute_dtype", "bfloat16"]
+    (acc_b, acc_e), report = train_cli_run(
+        cli_train.main, os.path.join(tmp, "bf16"), "cmlpl_bf16", counter_fn,
+        ("net B", "net E"), extra=bf16)
+    require(report["launches_training"] == {"gather_patches_f32": 0,
+                                            "gather_patches_bf16": 1},
+            f"bf16 training launches {report['launches_training']}")
+    require(report["launches_with_maps"] == {"gather_patches_f32": 2 * 406,
+                                             "gather_patches_bf16": 1},
+            f"bf16 launches with the maps {report['launches_with_maps']}")
+    require(acc_b.oa > 0.5 and acc_e.oa > 0.5,
+            f"bf16 OA net B {acc_b.oa}, net E {acc_e.oa}")
+    window = profiled_window(CMLPLTrainer(
+        CMLPLConfig(n_pc=N_PC, compute_dtype="bfloat16"),
+        device=tscene.device), tscene)
+    launches = {"cmlpl": 1}
+    others = {}
+    for algo, main_fn, maps in (("cps", train_cps.main, ("net B", "net E")),
+                                ("cct", train_cct.main, ("CCT",))):
+        _, rep = train_cli_run(main_fn, os.path.join(tmp, f"bf16_{algo}"),
+                               f"{algo}_bf16", counter_fn, maps, extra=bf16,
+                               epochs=1)
+        require(rep["launches_training"] == {"gather_patches_f32": 0,
+                                             "gather_patches_bf16": 1},
+                f"{algo} bf16 training launches {rep['launches_training']}")
+        launches[algo] = rep["launches_training"]["gather_patches_bf16"]
+        others[algo] = rep
+    emit({"phase": "train_bf16", **report,
+          "accuracy": {"net_b": accuracy(acc_b), "net_e": accuracy(acc_e)},
+          "profiled_window": window, "one_epoch": others,
+          "note": "synthetic PaviaU-size scene substituted for the absent "
+                  ".mat; OA says the run learns, not how well on PaviaU"})
+    return launches
+
+
+def phase_resume(tmp, counter_fn, device):
+    """cli.train at full width, RESUME_EPOCHS epochs, a checkpoint an
+    epoch, a fault injected after epoch FAIL_AT_EPOCH and one restart,
+    through run_resilient: it completes from that epoch's checkpoint, and
+    the pool is gathered once an epoch (kernel 1, RESUME_EPOCHS launches
+    over both attempts).  Then the latest checkpoint restored on the card,
+    saved again and restored again equals itself bit for bit, with its
+    size and its save and restore times."""
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.cli._common import run_resilient
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+    from cmlpl_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                  save_checkpoint)
+    from cmlpl_tpu_torch.weights import _flatten
+
+    ckpt = os.path.join(tmp, "resume_ckpt")
+    argv = ["--dataID", str(DATA_ID), "--data_root", tmp,
+            "--save_path_prefix", os.path.join(tmp, "resume"),
+            "--num_epochs", str(RESUME_EPOCHS), "--checkpoint_dir", ckpt,
+            "--checkpoint_every", "1", "--fail_at_epoch", str(FAIL_AT_EPOCH),
+            "--max_restarts", "1"]
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    (acc_b, _), lines, counts = run_cli(
+        lambda a: run_resilient(cli_train.main, a), argv, counter_fn)
+    wall_s = time.perf_counter() - t0
+    text = "\n".join(lines)
+    require("restart 1/1 from the latest checkpoint" in text,
+            "resume: no restart reported")
+    resumed_step = FAIL_AT_EPOCH * 78
+    require(f"resumed from step {resumed_step} (epoch {FAIL_AT_EPOCH})"
+            in text, "resume: not resumed from the injected epoch")
+    train_s, launches = line_value(lines, counts, "training time")
+    require(launches == (RESUME_EPOCHS, 0),
+            f"resume: pool launches (f32, bf16) {launches}")
+    steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+    require(steps == [78 * e for e in range(1, RESUME_EPOCHS + 1)],
+            f"resume: checkpoints {steps}")
+    require(acc_b.oa > 0.3, f"resume: OA {acc_b.oa}")
+
+    trainer = CMLPLTrainer(CMLPLConfig(n_pc=N_PC, num_epochs=RESUME_EPOCHS),
+                           device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = restore_checkpoint(ckpt, trainer)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    again = os.path.join(tmp, "resume_again")
+    t0 = time.perf_counter()
+    path = save_checkpoint(again, trainer, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    back = restore_checkpoint(again, trainer)
+    a, b = (dict(_flatten(trainer.state_to_jax(x))) for x in (state, back))
+    require(a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+        for k in a), "resume: the restored state differs from the saved")
+    require(torch.equal(state.generator.get_state(),
+                        back.generator.get_state()),
+            "resume: the generator state differs")
+    require(state.step == 78 * RESUME_EPOCHS, f"resume: step {state.step}")
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    emit({"phase": "resume", "epochs": RESUME_EPOCHS,
+          "fail_at_epoch": FAIL_AT_EPOCH, "restarts": 1,
+          "resumed_from_step": resumed_step, "checkpoints": steps,
+          "train_s_after_restart": train_s, "wall_s": wall_s,
+          "pool_launches_training": {"gather_patches_f32": launches[0],
+                                     "gather_patches_bf16": launches[1]},
+          "checkpoint_mb": size / 1e6, "save_ms": save_ms,
+          "restore_ms": restore_ms, "restored_equals_saved_bitwise": True,
+          "oa_net_b": acc_b.oa})
+    return launches[0]
+
+
+def phase_extras(tmp, tscene, counter_fn, device):
+    """One full-width epoch of cli.train with each extra objective and with
+    every augmentation; then one CMLPL step with stacked nets and one with
+    two forwards from one state (noise and dropout off): the same losses
+    and gradients within f32 rounding; and both step times with the
+    default config (no claim)."""
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.train.cmlpl import METRICS, CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    runs = {}
+    for label, extra in (
+            ("memobank", ["--extra_loss", "memobank"]),
+            ("mmd", ["--extra_loss", "mmd"]),
+            ("ntxent", ["--extra_loss", "ntxent"]),
+            ("augment", ["--augment", "flip", "rot90", "radiation",
+                         "mixture"])):
+        _, rep = train_cli_run(cli_train.main, os.path.join(tmp, label),
+                               f"extras_{label}", counter_fn,
+                               ("net B", "net E"), extra=extra, epochs=1)
+        require(rep["launches_training"] == {"gather_patches_f32": 1,
+                                             "gather_patches_bf16": 0},
+                f"{label}: training launches {rep['launches_training']}")
+        if label != "augment":
+            require("extra_loss" in rep["last_epoch_mean"],
+                    f"{label}: no extra_loss metric")
+        runs[label] = {k: rep[k] for k in (
+            "train_s", "ms_per_step", "last_epoch_mean", "launches_training")}
+
+    li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
+    out = {}
+    for stack in (False, True):
+        # the check: noise and dropout off, as card vs CPU
+        trainer = CMLPLTrainer(CMLPLConfig(n_pc=N_PC, stack_nets=stack,
+                                           noise=0.0, dropout=0.0),
+                               device=device)
+        state, m = trainer.train_epoch(trainer.init_state(SEED), tscene,
+                                       li[:1], ly[:1], ui[:1], epoch=1)
+        grads = [p.grad.detach().clone() for net in (state.net_b,
+                                                     state.net_e)
+                 for p in net.model.parameters()]
+        # the times: the default config, 20 steps after 5
+        trainer = CMLPLTrainer(CMLPLConfig(n_pc=N_PC, stack_nets=stack),
+                               device=device)
+        state = trainer.init_state(SEED)
+        trainer.train_epoch(state, tscene, li[1:6], ly[1:6], ui[1:6], 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_epoch(state, tscene, li[6:26], ly[6:26], ui[6:26], 1)
+        torch.cuda.synchronize()
+        out[stack] = ({k: m[k].cpu().numpy() for k in m}, grads,
+                      (time.perf_counter() - t0) / 20 * 1e3)
+    (m0, g0, ms0), (m1, g1, ms1) = out[False], out[True]
+    loss_err = {k: float(np.abs(m1[k] - m0[k]).max()) for k in METRICS}
+    grad_err = grad_gap(g1, g0)
+    for k in METRICS:
+        require(np.allclose(m1[k], m0[k], rtol=STACK_LOSS_RTOL,
+                            atol=STACK_LOSS_RTOL),
+                f"stack_nets {k}: {m1[k]} vs {m0[k]}")
+    require(grad_err <= STACK_GRAD_TOL,
+            f"stack_nets: gradients {grad_err} of the tensor's max")
+    emit({"phase": "extras", "one_epoch": runs,
+          "stack_nets": {"loss_max_abs_diff": loss_err,
+                         "grad_max_diff_of_tensor_max": grad_err,
+                         "ms_per_step_two_forwards": ms0,
+                         "ms_per_step_stacked": ms1, "steps_timed": 20}})
 
 
 def phase_dense(params, cube, scene, tiled_map, tiled_map_s: float):
@@ -820,8 +1149,6 @@ def phase_dense(params, cube, scene, tiled_map, tiled_map_s: float):
         predict_s = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in WRAPPERS}
     require(not any(launches.values()), f"dense launched {launches}")
-    require(not torch.backends.cudnn.allow_tf32
-            and not torch.backends.cuda.matmul.allow_tf32, "TF32 on")
 
     sd_cpu = state_dict_from_jax(params)
     sd_card = {k: v.to(scene.device) for k, v in sd_cpu.items()}
@@ -893,6 +1220,7 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_name_and_power()
     print(card, flush=True)
+    flags_at_start = tf32_flags()
 
     # 1. build
     t0 = time.perf_counter()
@@ -1092,14 +1420,20 @@ def main() -> int:
     # dense whole-scene eval beside the tiled map
     phase_dense(params, cube, scene, served, map_s)
 
-    # 5. training (slices 2 and 3): the kernels at the training shapes, the
-    # steps of the three trainers on the card vs the CPU, cli.train at full
-    # width with its default pool gather, one epoch with each per-step
-    # kernel gather, cli.train_cps and cli.train_cct at full width, the OA
-    # A/B of each CLI
+    # 5. training (slices 2 to 4): the kernels at the training shapes, the
+    # steps of the three trainers on the card vs the CPU (f32, then bf16),
+    # cli.train at full width with its default pool gather, one epoch with
+    # each per-step kernel gather, cli.train_cps and cli.train_cct at full
+    # width, the OA A/B of each CLI; bf16 training, a run with checkpoints,
+    # a fault and a restart, and the extras
+    phase_tf32_scope(device, flags_at_start)
     train_gather = phase_train_gather(tscene, tscene.labels, device)
+    f32_grads = {algo: phase_card_vs_cpu(cube, gt, device, algo,
+                                         flags_at_start)
+                 for algo in ("cmlpl", "cps", "cct")}
     for algo in ("cmlpl", "cps", "cct"):
-        phase_card_vs_cpu(cube, gt, device, algo)
+        phase_card_vs_cpu(cube, gt, device, algo, flags_at_start, "bfloat16",
+                          f32_grads.pop(algo))
 
     def counter_fn():
         return (gather_patches_f32.launches, gather_patches_bf16.launches)
@@ -1111,9 +1445,16 @@ def main() -> int:
         for algo in ("cps", "cct"):
             pool_launches[algo] = phase_train_algo(tmp, tscene, counter_fn,
                                                    algo)
+        bf16_launches = phase_train_bf16(tmp, tscene, counter_fn)
+        resume_launches = phase_resume(tmp, counter_fn, device)
+        phase_extras(tmp, tscene, counter_fn, device)
         ab, scene_npz = ab_inputs(tmp)
         for algo in ("cmlpl", "cps", "cct"):
             phase_ab(ab, scene_npz, algo)
+        phase_ab(ab, scene_npz, "cmlpl", ["--compute_dtype", "bfloat16"],
+                 "bf16_ab")
+    require(tf32_flags() == flags_at_start,
+            f"TF32 left at {tf32_flags()}, found at {flags_at_start}")
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"],
                 "patch_gather_bf16":
@@ -1124,10 +1465,18 @@ def main() -> int:
             "cli.train_cps default (pool), training": pool_launches["cps"],
             "cli.train_cct default (pool), training": pool_launches["cct"],
             "cli.train --gather_impl pallas, training":
-            per_step["pallas"]["launches_training"][0]},
+            per_step["pallas"]["launches_training"][0],
+            f"cli.train --checkpoint_every 1, {RESUME_EPOCHS} epochs and a "
+            "restart (pool an epoch), training": resume_launches},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
-            per_step["pallas_bf16"]["launches_training"][1]}}
+            per_step["pallas_bf16"]["launches_training"][1],
+            "cli.train --compute_dtype bfloat16 (pool), training":
+            bf16_launches["cmlpl"],
+            "cli.train_cps --compute_dtype bfloat16, 1 epoch, training":
+            bf16_launches["cps"],
+            "cli.train_cct --compute_dtype bfloat16, 1 epoch, training":
+            bf16_launches["cct"]}}
     require(all(n > 0 for n in launches.values()),
             f"a kernel was not launched on the main path: {launches}")
     require(all(n > 0 for d in launches_train.values() for n in d.values()),

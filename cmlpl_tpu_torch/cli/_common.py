@@ -4,11 +4,12 @@
 The flags have the JAX package's names and defaults (reference
 ``train.py:355-380``), plus ``--device`` (the CUDA card unless asked for
 the CPU).  predict and serve read :func:`base_parser` and ``--weights``, a
-BaseNet2 param npz in the JAX layout (:mod:`cmlpl_tpu_torch.weights`),
-which takes the place of ``--checkpoint_dir``, whose orbax checkpoints
-need JAX to read.  train, train_cps and train_cct read
-:func:`train_parser`; its ``--weights_out`` writes the trained weights in
-that layout.
+BaseNet2 param npz in the JAX layout (:mod:`cmlpl_tpu_torch.weights`).
+train, train_cps and train_cct read :func:`train_parser`: its
+``--weights_out`` writes the trained weights in that layout, and
+``--checkpoint_dir`` holds the trainer states that ``--resume`` and
+``--max_restarts`` restart from (:mod:`cmlpl_tpu_torch.utils.checkpoint`,
+the JAX package's directory contract in a format of the port's own).
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -29,6 +32,8 @@ from cmlpl_tpu_torch.models.basenet import BaseNet2
 from cmlpl_tpu_torch.ops.patch_gather import TRAIN_GATHERS
 from cmlpl_tpu_torch.registry import get_dataset
 from cmlpl_tpu_torch.train.state import CMLPLConfig
+from cmlpl_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
 from cmlpl_tpu_torch.weights import load_params_npz, state_dict_from_jax
 
 
@@ -43,8 +48,9 @@ def _shared_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_PC", type=int, default=60)
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="model compute dtype (params stay float32); "
-                        "training takes float32 only for now")
+                   help="model compute dtype (params stay float32; "
+                        "losses, queues and Adam stay float32 in "
+                        "training)")
     p.add_argument("--eval_gather", type=str, default="auto",
                    choices=list(GATHERS),
                    help="full-scene inference patch gather: auto = the f32 "
@@ -64,7 +70,8 @@ def base_parser() -> argparse.ArgumentParser:
     p = _shared_parser()
     p.add_argument("--weights", type=str, default=None,
                    help="BaseNet2 params as a flat '<layer>/<leaf>' npz in "
-                        "the JAX layout (replaces --checkpoint_dir)")
+                        "the JAX layout (what the training CLIs' "
+                        "--weights_out writes)")
     return p
 
 
@@ -115,8 +122,11 @@ def train_parser() -> argparse.ArgumentParser:
                         "8; same distribution and independence)")
     p.add_argument("--input_dtype", type=str, default="compute",
                    choices=["compute", "float32"],
-                   help="dtype of gathered patches/noise views; both keep "
-                        "them f32 while training computes in f32")
+                   help="dtype of gathered patches, spectra and noise "
+                        "views: 'compute' stores them in the compute dtype "
+                        "(under bfloat16 the pool is gathered by the bf16 "
+                        "CUDA kernel and the views are drawn in bf16), "
+                        "'float32' keeps them f32")
     p.add_argument("--gather_impl", type=str, default="auto",
                    choices=list(TRAIN_GATHERS),
                    help="training patch gather: auto (default) = 'pool' "
@@ -137,6 +147,38 @@ def train_parser() -> argparse.ArgumentParser:
                         "in the JAX layout: net B's for train and train_cps "
                         "(what predict and serve read as --weights), the "
                         "CCT tree for train_cct")
+    p.add_argument("--extra_loss", type=str, default="",
+                   choices=["", "memobank", "mmd", "ntxent"],
+                   help="opt-in extra objective (train; ignored by "
+                        "train_cps and train_cct, as in the JAX package): "
+                        "U2PL memory-bank InfoNCE, labeled/unlabeled MMD, "
+                        "or cross-net NT-Xent")
+    p.add_argument("--extra_weight", type=float, default=0.1,
+                   help="weight of --extra_loss in the total loss")
+    p.add_argument("--augment", nargs="*", default=[],
+                   choices=["flip", "rot90", "radiation", "mixture"],
+                   help="opt-in patch augmentations (train; "
+                        "hsi_loader.py:58-107, dead in the reference)")
+    p.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="write the trainer state here at the end of the "
+                        "run (and every --checkpoint_every epochs), as "
+                        "<dir>/<step>/")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="save a checkpoint every N epochs (0 = only at "
+                        "the end, with --checkpoint_dir)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in "
+                        "--checkpoint_dir")
+    p.add_argument("--max_restarts", type=int, default=0,
+                   help="on a training failure, retry the run up to N "
+                        "times in the same process, resuming from the "
+                        "latest checkpoint in --checkpoint_dir (required; "
+                        "pair with --checkpoint_every for mid-run restart "
+                        "points)")
+    # fault injection for the recovery tests: raise RuntimeError in the
+    # epoch hook right after epoch N's checkpoint is written
+    p.add_argument("--fail_at_epoch", type=int, default=0,
+                   help=argparse.SUPPRESS)
     return p
 
 
@@ -166,6 +208,9 @@ def build_config(args, spec) -> CMLPLConfig:
         noise_impl=args.noise_impl,
         noise_fused=args.noise_fused,
         gather_impl=args.gather_impl,
+        extra_loss=args.extra_loss,
+        extra_weight=args.extra_weight,
+        augment=tuple(args.augment),
     )
 
 
@@ -233,12 +278,89 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def timed_fit(trainer, state, scene, sampler, log_every: int):
+def make_epoch_hook(args, trainer):
+    """``fit``'s ``on_epoch_end`` for ``--checkpoint_every`` (a checkpoint
+    every N epochs, with ``--checkpoint_dir``) and ``--fail_at_epoch``, or
+    None when neither is set.
+
+    ``--fail_at_epoch N`` raises after epoch N's checkpoint is written, so
+    a retry by :func:`run_resilient` resumes at epoch N and never meets
+    the injection point again: one failure, deterministically."""
+    every = args.checkpoint_every if args.checkpoint_dir else 0
+    fail_at = args.fail_at_epoch
+    if not every and not fail_at:
+        return None
+
+    def hook(epoch, state):
+        if every and (epoch + 1) % every == 0:
+            save_checkpoint(args.checkpoint_dir, trainer, state)
+        if fail_at and epoch + 1 == fail_at:
+            raise RuntimeError(
+                f"fault injection: failing after epoch {epoch + 1}")
+
+    return hook
+
+
+def run_resilient(entry, argv=None):
+    """Run ``entry(argv)``; on a training failure, retry it up to
+    ``--max_restarts`` times in the same process with ``--resume``
+    appended, so a retry continues from the latest checkpoint and a
+    failure costs at most ``--checkpoint_every`` epochs.  Without
+    ``--checkpoint_dir`` a retry would repeat the run from scratch, so the
+    failure is raised instead.  Exits and interrupts are never retried."""
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    probe = argparse.ArgumentParser(add_help=False)
+    probe.add_argument("--max_restarts", type=int, default=0)
+    probe.add_argument("--checkpoint_dir", type=str, default=None)
+    known, _ = probe.parse_known_args(argv)
+    attempts = 0
+    while True:
+        try:
+            return entry(argv)
+        except Exception as e:
+            attempts += 1
+            if attempts > known.max_restarts or not known.checkpoint_dir:
+                raise
+            traceback.print_exc()
+            print(f"training attempt failed ({type(e).__name__}: {e}); "
+                  f"restart {attempts}/{known.max_restarts} from the "
+                  "latest checkpoint")
+            if "--resume" not in argv:
+                argv.append("--resume")
+
+
+def maybe_resume(args, trainer, state, batches_per_epoch: int):
+    """``--resume``: the latest checkpoint of ``--checkpoint_dir`` in
+    place of ``state``, and the epoch to start from, ``step //
+    batches_per_epoch``; returns (state, start_epoch).  The run then draws
+    its batches afresh from the sampler's first epoch, as the JAX
+    package's does."""
+    if not (args.resume and args.checkpoint_dir):
+        return state, 0
+    try:
+        state = restore_checkpoint(args.checkpoint_dir, trainer)
+    except FileNotFoundError:
+        print("no checkpoint to resume from; starting fresh")
+        return state, 0
+    start_epoch = state.step // batches_per_epoch
+    print(f"resumed from step {state.step} (epoch {start_epoch})")
+    return state, start_epoch
+
+
+def save_final_checkpoint(args, trainer, state) -> None:
+    if args.checkpoint_dir:
+        save_checkpoint(args.checkpoint_dir, trainer, state)
+
+
+def timed_fit(trainer, state, scene, sampler, log_every: int,
+              start_epoch: int = 0, on_epoch_end=None):
     """``trainer.fit`` between two device synchronises; prints the
     "training time == <s>s (<n> steps)" line.  Returns (state, history)."""
     sync(trainer.device)
     t0 = time.perf_counter()
-    state, history = trainer.fit(state, scene, sampler, log_every=log_every)
+    state, history = trainer.fit(state, scene, sampler, log_every=log_every,
+                                 start_epoch=start_epoch,
+                                 on_epoch_end=on_epoch_end)
     sync(trainer.device)
     print(f"training time == {time.perf_counter() - t0:.3f}s "
           f"({len(history)} steps)")

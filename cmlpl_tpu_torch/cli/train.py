@@ -5,10 +5,13 @@ OA/AA/Kappa report, class map, CSV.
     python -m cmlpl_tpu_torch.cli.train --dataID 1 --weights_out w.npz
 
 Runs on the CUDA card unless ``--device cpu``.  ``--num_iters`` repeats
-the run serially with seeds ``(--seed, iteration)`` and reports mean ± std.
-``--weights_out`` writes net B's params as the JAX-layout npz that predict
-and serve read; checkpoints, resume, ``--fused_iters``, ``--multihost``
-and ``--profile_dir`` are not ported yet (ROADMAP.md section 1).
+the run serially with seeds ``(--seed, iteration)`` and reports mean ± std;
+``--resume`` applies to the first.  ``--weights_out`` writes net B's
+params as the JAX-layout npz that predict and serve read;
+``--checkpoint_dir`` the trainer state.  Run as a module, a failed run is
+retried up to ``--max_restarts`` times from its latest checkpoint.
+``--fused_iters``, ``--multihost`` and ``--profile_dir`` are not ported
+yet (ROADMAP.md section 1, item 10).
 """
 
 from __future__ import annotations
@@ -18,9 +21,12 @@ import os
 import numpy as np
 
 from cmlpl_tpu_torch.cli._common import (build_config, build_data,
-                                         logits_fn, report_accuracy,
-                                         save_history, save_path, scene_map,
-                                         timed_fit, train_parser)
+                                         logits_fn, make_epoch_hook,
+                                         maybe_resume, report_accuracy,
+                                         run_resilient,
+                                         save_final_checkpoint, save_history,
+                                         save_path, scene_map, timed_fit,
+                                         train_parser)
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.metrics import cal_accuracy
 from cmlpl_tpu_torch.eval.report import save_report
@@ -47,8 +53,13 @@ def main(argv=None):
     state = None
     for index_iter in range(args.num_iters):
         state = trainer.init_state((args.seed, index_iter))
+        start_epoch = 0
+        if index_iter == 0:
+            state, start_epoch = maybe_resume(args, trainer, state,
+                                              sampler.batches_per_epoch)
         state, history = timed_fit(trainer, state, scene, sampler,
-                                   args.print_per_batches)
+                                   args.print_per_batches, start_epoch,
+                                   make_epoch_hook(args, trainer))
         if index_iter == 0:
             save_history(args, history)
 
@@ -68,6 +79,7 @@ def main(argv=None):
     if args.num_iters > 1:
         oas = np.array([r.oa for r in runs_b])
         print(f"mean_OA ± std_OA is: {oas.mean()} ± {oas.std()}")
+    save_final_checkpoint(args, trainer, state)
     if args.weights_out:
         save_params_npz(args.weights_out,
                         params_to_jax(state.net_b.model.state_dict()))
@@ -76,4 +88,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_resilient(main)

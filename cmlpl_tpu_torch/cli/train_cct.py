@@ -8,8 +8,8 @@ OA/AA/Kappa report, class map, CSV.
 Runs on the CUDA card unless ``--device cpu``.  ``--weights_out`` writes
 the CCT param tree (``encoder``, ``dec_base``, ``dec1``, ``dec2``) as a
 flat JAX-layout npz.  It accepts and ignores ``--num_iters``, as the JAX
-CLI does; checkpoints and resume are not ported yet (ROADMAP.md section 1,
-item 4).
+CLI does.  ``--checkpoint_dir``, ``--resume`` and ``--max_restarts``
+work as in ``cli.train``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ from __future__ import annotations
 import os
 
 from cmlpl_tpu_torch.cli._common import (build_config, build_data,
-                                         report_accuracy, save_history,
+                                         make_epoch_hook, maybe_resume,
+                                         report_accuracy, run_resilient,
+                                         save_final_checkpoint, save_history,
                                          save_path, scene_map, timed_fit,
                                          train_parser)
 from cmlpl_tpu_torch.device import resolve_device
@@ -33,9 +35,12 @@ def main(argv=None):
     device = resolve_device(args.device)
     spec, scene, splits, sampler = build_data(args, device)
     trainer = CCTTrainer(build_config(args, spec), device=device)
-    state = trainer.init_state(args.seed)
+    state, start_epoch = maybe_resume(args, trainer,
+                                      trainer.init_state(args.seed),
+                                      sampler.batches_per_epoch)
     state, history = timed_fit(trainer, state, scene, sampler,
-                               args.print_per_batches)
+                               args.print_per_batches, start_epoch,
+                               make_epoch_hook(args, trainer))
     save_history(args, history)
 
     model = state.model.eval()
@@ -48,6 +53,7 @@ def main(argv=None):
     save_class_map(os.path.join(out, f"CCT_OA_{int(acc.oa * 10000)}.svg"),
                    pred + 1, spec, rows=scene.rows, cols=scene.cols)
     save_report(os.path.join(out, "cct_results.csv"), [acc])
+    save_final_checkpoint(args, trainer, state)
     if args.weights_out:
         save_params_npz(args.weights_out, params_to_jax(model.state_dict()))
         print(f"wrote {args.weights_out}")
@@ -55,4 +61,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_resilient(main)

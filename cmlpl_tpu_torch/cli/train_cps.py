@@ -7,18 +7,21 @@ of both.
 
 Runs on the CUDA card unless ``--device cpu``.  ``--weights_out`` writes
 net B's params as the JAX-layout npz that predict and serve read.  It
-accepts and ignores ``--num_iters``, as the JAX CLI does; checkpoints and
-resume are not ported yet (ROADMAP.md section 1, item 4).
+accepts and ignores ``--num_iters``, as the JAX CLI does.
+``--checkpoint_dir``, ``--resume`` and ``--max_restarts`` work as in
+``cli.train``.
 """
 
 from __future__ import annotations
 
 import os
 
-from cmlpl_tpu_torch.cli._common import (build_config, build_data,
-                                         logits_fn, report_accuracy,
-                                         save_history, save_path, scene_map,
-                                         timed_fit, train_parser)
+from cmlpl_tpu_torch.cli._common import (build_config, build_data, logits_fn,
+                                         make_epoch_hook, maybe_resume,
+                                         report_accuracy, run_resilient,
+                                         save_final_checkpoint, save_history,
+                                         save_path, scene_map, timed_fit,
+                                         train_parser)
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.metrics import cal_accuracy
 from cmlpl_tpu_torch.eval.report import save_report
@@ -32,9 +35,12 @@ def main(argv=None):
     device = resolve_device(args.device)
     spec, scene, splits, sampler = build_data(args, device)
     trainer = CPSTrainer(build_config(args, spec), device=device)
-    state = trainer.init_state(args.seed)
+    state, start_epoch = maybe_resume(args, trainer,
+                                      trainer.init_state(args.seed),
+                                      sampler.batches_per_epoch)
     state, history = timed_fit(trainer, state, scene, sampler,
-                               args.print_per_batches)
+                               args.print_per_batches, start_epoch,
+                               make_epoch_hook(args, trainer))
     save_history(args, history)
 
     preds = {}
@@ -52,6 +58,7 @@ def main(argv=None):
     save_class_map(os.path.join(out, f"CPS_OA_{int(acc_b.oa * 10000)}.svg"),
                    preds["net B"] + 1, spec, rows=scene.rows, cols=scene.cols)
     save_report(os.path.join(out, "cps_results.csv"), [acc_b], [acc_e])
+    save_final_checkpoint(args, trainer, state)
     if args.weights_out:
         save_params_npz(args.weights_out,
                         params_to_jax(state.net_b.model.state_dict()))
@@ -60,4 +67,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    run_resilient(main)

@@ -6,6 +6,8 @@ is no silent CPU fallback when CUDA is missing.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -20,13 +22,25 @@ def resolve_device(name=None) -> torch.device:
     return dev
 
 
-def set_compute_precision(compute_dtype: str) -> None:
-    """Set TF32 for cuDNN convolutions and cuBLAS matmuls from the model's
-    compute dtype.  cuDNN defaults to TF32 for f32 convs, so ``float32``
-    turns both off to keep f32 meaning f32; under ``bfloat16`` the layers
-    compute in bf16 and TF32 is allowed."""
+@contextlib.contextmanager
+def compute_precision(compute_dtype: str):
+    """TF32 for cuDNN convolutions and cuBLAS matmuls, set from a compute
+    dtype for the calls inside the block and restored on exit.
+
+    cuDNN defaults to TF32 for f32 convs, so ``float32`` turns both off to
+    keep f32 meaning f32; under ``bfloat16`` the layers compute in bf16
+    and TF32 is allowed.  The switches are process-global, so a model
+    scopes them to its own calls: building or running one leaves every
+    later call as it found it."""
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     tf32 = compute_dtype == "bfloat16"
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = tf32
     torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from cmlpl_tpu_torch.data.patches import gather_patches, gather_spectra
 from cmlpl_tpu_torch.data.prep import PreparedScene
+from cmlpl_tpu_torch.device import compute_precision
 from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                               gather_patches_f32)
 
@@ -79,13 +80,14 @@ def dense_scene_logits(params: Mapping, scene: PreparedScene
 
     ``params``: see :func:`_dense_params_view`.  Needs
     ``patch_size % 4 == 0``.  Computes in f32 whatever the model's
-    compute dtype, as the JAX package does."""
+    compute dtype, as the JAX package does, with TF32 off."""
     if scene.patch_size % 4 != 0:
         raise ValueError("dense eval needs patch_size % 4 == 0 "
                          f"(got {scene.patch_size})")
-    return _dense_logits(_dense_params_view(params), scene.padded_pca,
-                         scene.spectra, scene.rows, scene.cols,
-                         scene.patch_size)
+    with compute_precision("float32"):
+        return _dense_logits(_dense_params_view(params), scene.padded_pca,
+                             scene.spectra, scene.rows, scene.cols,
+                             scene.patch_size)
 
 
 def _dense_logits(params: dict, padded: torch.Tensor, spectra: torch.Tensor,

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cmlpl_tpu_torch.device import set_compute_precision
+from cmlpl_tpu_torch.device import compute_precision
 from cmlpl_tpu_torch.models.common import avg_pool2, l2_normalize
 
 FEAT_DIM = 1024       # spectral feature width (models.py:119)
@@ -35,12 +35,15 @@ class _Stem(nn.Module):
     pools on the patch, ``feat_spe`` on the spectrum.
 
     ``compute_dtype``: dtype the stem computes in; params stay f32 and are
-    cast per call, as flax's ``dtype`` does.  Constructing the model sets
-    the TF32 switches from it (``set_compute_precision``)."""
+    cast per call, as flax's ``dtype`` does, so autograd carries the bf16
+    products' gradients back to the f32 params.  The model's own calls set
+    the TF32 switches from it (``compute_precision``) and restore them."""
 
     def __init__(self, num_features: int, n_pc: int, compute_dtype: str):
         super().__init__()
-        set_compute_precision(compute_dtype)
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+        self.precision = compute_dtype
         self.compute_dtype = _DTYPES[compute_dtype]
         self.conv0 = nn.Conv2d(n_pc, 64, 1)
         self.conv1 = nn.Conv2d(64, 64, 3, padding=1)
@@ -87,15 +90,17 @@ class BaseNet2(_Stem):
         self.classifier = nn.Linear(joint_dim(patch_size), num_classes)
 
     def forward(self, xp: torch.Tensor, x: torch.Tensor,
-                generator: torch.Generator | None = None):
-        """In training mode the dropout mask is drawn from ``generator``
-        (torch's default generator when None)."""
-        h, y = self.stem(xp, x)
-        z = torch.cat([h, y], dim=1)
-        feat = l2_normalize(y.float())
-        if self.dropout > 0 and self.training:
-            z = dropout(z, self.dropout, generator)
-        logits = self._dense(self.classifier, z)
+                generator: torch.Generator | None = None,
+                keep: torch.Tensor | None = None):
+        """In training mode the dropout mask is ``keep`` or, when None,
+        drawn from ``generator`` (torch's default generator when None)."""
+        with compute_precision(self.precision):
+            h, y = self.stem(xp, x)
+            z = torch.cat([h, y], dim=1)
+            feat = l2_normalize(y.float())
+            if self.dropout > 0 and self.training:
+                z = dropout(z, self.dropout, generator, keep)
+            logits = self._dense(self.classifier, z)
         return logits.float(), feat
 
 
@@ -121,7 +126,8 @@ class CCTNet(_Stem):
             self.decoder = Decoder(num_features, n_pc)
 
     def forward(self, xp: torch.Tensor, x: torch.Tensor):
-        h, y = self.stem(xp, x)
+        with compute_precision(self.precision):
+            h, y = self.stem(xp, x)
         fea1 = torch.cat([h, y], dim=1).float()
         if self.with_decoder:
             return fea1, fea1, self.decoder(self.feat_ss(fea1))
@@ -176,14 +182,22 @@ class LinearClassifier(nn.Module):
         return self.fc(x)
 
 
-def dropout(z: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
-    """Flax's ``nn.Dropout``: keep each element with probability
-    ``1 - rate`` (a uniform draw below it) and scale the kept ones by
-    ``1 / (1 - rate)``."""
-    keep = 1.0 - rate
-    if keep <= 0.0:
+def keep_mask(shape, rate: float, generator: torch.Generator | None,
+              device) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` mask: keep each element with probability
+    ``1 - rate`` (a uniform draw below it)."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def dropout(z: torch.Tensor, rate: float, generator: torch.Generator | None,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: the elements of ``keep`` (drawn from
+    ``generator`` by :func:`keep_mask` when None) scaled by
+    ``1 / (1 - rate)``, the others 0."""
+    p = 1.0 - rate
+    if p <= 0.0:
         return torch.zeros_like(z)
-    mask = torch.rand(z.shape, generator=generator, device=z.device) < keep
-    return torch.where(mask, z / keep, torch.zeros((), dtype=z.dtype,
-                                                   device=z.device))
+    if keep is None:
+        keep = keep_mask(z.shape, rate, generator, z.device)
+    return torch.where(keep, z / p, torch.zeros((), dtype=z.dtype,
+                                                device=z.device))

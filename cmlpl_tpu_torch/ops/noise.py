@@ -1,10 +1,16 @@
-"""Gaussian input views for the two-net trainer (``cmlpl_tpu/ops/noise.py``).
+"""Gaussian input views for the two-net trainer (``cmlpl_tpu/ops/noise.py``),
+and the other samplers of the trainers' random draws.
 
 The reference perturbs every training input with iid Gaussian noise
 (train.py:157-184 draws a fresh ``torch.randn`` per tensor).  The draws
 come from one explicit ``torch.Generator`` on the tensors' device, taken
 in a fixed order, so a run is reproducible from its seed.  Philox is not
 threefry: the views hold the JAX package's distribution, not its bits.
+
+- A view is drawn in its tensor's dtype.  In bf16 the normal sampler is
+  the JAX package's (:func:`normal`): ``jax.random.normal(key, shape,
+  jnp.bfloat16)`` takes 128 values only, within |z| <= 2.890625, where
+  ``torch.randn`` in bf16 would take thousands, out to 5 sigma.
 
 - ``noise_impl="binom16"``: the standardised Binomial(16, 1/2),
   ``(popcount(16 random bits) - 8) / 2``: mean 0, variance 1, a 17-level
@@ -16,6 +22,9 @@ threefry: the views hold the JAX package's distribution, not its bits.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -29,13 +38,54 @@ def popcount16(bits: torch.Tensor) -> torch.Tensor:
     return (x + (x >> 8)) & 0x1F
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_normal_levels(device: torch.device) -> torch.Tensor:
+    """The 128 values of ``jax.random.normal`` in bf16, by the arithmetic
+    of ``jax/_src/random.py`` (``_uniform``, ``_normal_real``), op by op in
+    bf16 on the CPU: the uniform k/128 from 7 mantissa bits, mapped to
+    [nextafter(-1, 0), 1) as ``u * (1 - lo) + lo`` and clamped at ``lo``,
+    then ``sqrt(2) * erfinv``."""
+    bf = torch.bfloat16
+    lo = torch.tensor(-1 + 2 ** -8, dtype=bf)      # nextafter(-1, 0)
+    u = torch.arange(128).to(bf) / 128
+    v = torch.maximum(lo, u * (1 - lo) + lo)       # 1 - lo rounds to 2
+    z = torch.tensor(math.sqrt(2), dtype=bf) * torch.erfinv(v.float()).to(bf)
+    return z.to(device)
+
+
+def normal(g: torch.Generator, shape, dtype: torch.dtype,
+           device) -> torch.Tensor:
+    """Standard normal draws of ``shape`` in ``dtype``: ``torch.randn``,
+    except in bf16, where the JAX package's sampler takes one of its 128
+    values (:func:`_bf16_normal_levels`) for a uniform 7-bit draw."""
+    if dtype == torch.bfloat16:
+        k = torch.randint(0, 128, shape, generator=g, device=device)
+        return _bf16_normal_levels(torch.device(device))[k]
+    return torch.randn(shape, generator=g, device=device, dtype=dtype)
+
+
+def masked_choice(g: torch.Generator, mask: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """``n`` indices drawn uniformly, with replacement, from the true
+    positions of each row of ``mask`` (..., N) -> (..., n) int64; 0 where
+    a row has none (the callers gate on its count).  The counterpart of
+    the JAX package's ``jax.random.categorical`` over 0 / -1e30 logits,
+    with no host synchronisation: the k-th true position is found by a
+    search of the row's running count."""
+    csum = mask.long().cumsum(-1)
+    total = csum[..., -1:]
+    u = torch.rand(mask.shape[:-1] + (n,), generator=g, device=mask.device)
+    k = torch.minimum((u * total).long(), total - 1)
+    return torch.searchsorted(csum, k, right=True).clamp(
+        max=mask.shape[-1] - 1)
+
+
 def make_noiser(noise_impl: str, scale: float):
     """Returns ``noisy(generator, a) -> a + scale * sample(a.shape)``,
     sampled in ``a.dtype`` on ``a.device``."""
     if noise_impl == "normal":
         def sample(g, a):
-            return torch.randn(a.shape, generator=g, device=a.device,
-                               dtype=a.dtype)
+            return normal(g, a.shape, a.dtype, a.device)
     elif noise_impl == "binom16":
         def sample(g, a):
             bits = torch.randint(0, 1 << 16, a.shape, generator=g,

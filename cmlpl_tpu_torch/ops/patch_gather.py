@@ -91,8 +91,9 @@ def gather_patches_bf16(cube: torch.Tensor, idx: torch.Tensor, *,
                         cols: int, w: int) -> torch.Tensor:
     """Kernel 2: (B, w, w, C) bf16 patches from a plain bf16 cube
     (replaces ``gather_patches_pallas_shifted`` and its shift cube,
-    ``cmlpl_tpu/ops/patch_gather.py:159-222``).  Callers upcast
-    ``[..., :n_pc]`` to f32, as the JAX callers do."""
+    ``cmlpl_tpu/ops/patch_gather.py:159-222``).  The map and the f32-input
+    trainers upcast its patches to f32, as the JAX callers do; the
+    bf16-input trainers keep them bf16."""
     _check(cube, idx, cols, w, torch.bfloat16)
     if cube.device.type == "cpu":
         return gather_patches_plain(cube, idx, cols=cols, w=w)
@@ -184,16 +185,35 @@ def poolify_batches(lab_idx, unl_idx, bucket: int = POOL_BUCKET):
     return pool.astype(np.int32), li_pos, ui_pos
 
 
+def make_input_cast(compute_dtype: str, input_dtype: str):
+    """The cast of the gathered patches and spectra, and so of the noise
+    views drawn in their dtype (``CMLPLConfig.input_dtype``;
+    ``cmlpl_tpu/ops/patch_gather.py:307-317``): to bf16 under bf16
+    compute with ``input_dtype="compute"``, else to f32.  The layers cast
+    their inputs to the compute dtype anyway; only the rounding point
+    moves."""
+    if input_dtype not in ("compute", "float32"):
+        raise ValueError(f"unknown input_dtype {input_dtype!r}")
+    dtype = (torch.bfloat16
+             if (compute_dtype, input_dtype) == ("bfloat16", "compute")
+             else torch.float32)
+    return lambda a: a.to(dtype)
+
+
 def make_train_gather(gather_impl: str, n_pc: int):
     """(prep_cube, gather) pair of the per-step training gather knob.
 
     ``prep_cube(padded)`` runs once per run, epoch or step (whatever one
     call of the trainer covers), outside the steps: identity for "xla"
     and "pallas", the bf16 copy of the cube for "pallas_bf16".
-    ``gather(prepped, pixel_idx, cols, w)`` returns f32 (B, w, w, n_pc)
-    patches: the plain gather ("xla"), kernel 1 ("pallas") or kernel 2
-    upcast to f32 ("pallas_bf16", patch inputs bf16-quantised).  The
-    kernel needs no 128-channel pad, unlike the TPU kernel."""
+    ``gather(prepped, pixel_idx, cols, w)`` returns (B, w, w, n_pc)
+    patches in the prepped cube's dtype: f32 from the plain gather
+    ("xla") or kernel 1 ("pallas"), bf16 from kernel 2 ("pallas_bf16",
+    patch inputs bf16-quantised).  The trainer casts them to its input
+    dtype (:func:`make_input_cast`): under f32 inputs that is the JAX
+    callers' upcast of kernel 2's patches, under bf16 inputs there is
+    nothing to cast.  The kernel needs no 128-channel pad, unlike the TPU
+    kernel."""
     if gather_impl == "xla":
         def gather(prepped, pixel_idx, cols, w):
             return gather_patches_plain(prepped, pixel_idx, cols=cols, w=w)
@@ -209,7 +229,7 @@ def make_train_gather(gather_impl: str, n_pc: int):
     if gather_impl == "pallas_bf16":
         def gather(cube, pixel_idx, cols, w):
             out = gather_patches_bf16(cube, pixel_idx, cols=cols, w=w)
-            return out[..., :n_pc].float()
+            return out[..., :n_pc]
 
         return (lambda padded: padded.to(torch.bfloat16)), gather
 
@@ -219,12 +239,18 @@ def make_train_gather(gather_impl: str, n_pc: int):
 
 def gather_pool(padded: torch.Tensor, spectra: torch.Tensor,
                 pool_idx: torch.Tensor, *, cols: int, w: int):
-    """The training pool: (P, w, w, C) patches of the pool's pixel ids by
-    kernel 1, and their (P, bands) spectra.
+    """The training pool: (P, w, w, C) patches of the pool's pixel ids, by
+    kernel 1 from an f32 cube or kernel 2 from a bf16 one, and their
+    (P, bands) spectra.
 
-    Replaces the JAX package's bulk gather of the pool
+    Replaces the JAX package's bulk gather of the pool and its cast
     (``cmlpl_tpu/train/cmlpl.py:206-227,468-474``), which is XLA's
     dynamic-slice gather there because the TPU kernel needed a 128-channel
-    pad.  The steps then take rows of the pool by position."""
-    return (gather_patches_f32(padded, pool_idx, cols=cols, w=w),
+    pad.  A gather copies, and a copy commutes with rounding, so kernel 2
+    on ``padded.to(torch.bfloat16)`` is bitwise the cast of kernel 1's
+    pool, without the f32 pool.  The steps then take rows of the pool by
+    position."""
+    kernel = (gather_patches_bf16 if padded.dtype == torch.bfloat16
+              else gather_patches_f32)
+    return (kernel(padded, pool_idx, cols=cols, w=w),
             spectra.index_select(0, pool_idx))

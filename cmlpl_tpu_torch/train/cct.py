@@ -31,7 +31,8 @@ from cmlpl_tpu_torch.models.basenet import CCTNet, LinearClassifier, joint_dim
 from cmlpl_tpu_torch.objectives.cct import softmax_js_loss
 from cmlpl_tpu_torch.objectives.supervised import cross_entropy
 from cmlpl_tpu_torch.train.driver import EpochDriver
-from cmlpl_tpu_torch.weights import init_cct_params, state_dict_from_jax
+from cmlpl_tpu_torch.weights import (cct_state_from_jax, cct_state_to_jax,
+                                     init_cct_params, state_dict_from_jax)
 
 HEADS = ("dec_base", "dec1", "dec2")
 
@@ -95,6 +96,12 @@ class CCTTrainer(EpochDriver):
                             num_classes=cfg.num_classes,
                             patch_size=cfg.patch_size),
             int(k_run.generate_state(1)[0]))
+
+    def state_to_jax(self, state: CCTTrainState) -> dict:
+        return cct_state_to_jax(state)
+
+    def state_from_jax(self, tree, run_seed: int = 0) -> CCTTrainState:
+        return cct_state_from_jax(tree, self, run_seed)
 
     def _step(self, state: CCTTrainState, xp_l, x_l, xp_u, x_u, lab_y,
               epoch: int, batch_index: int) -> dict:

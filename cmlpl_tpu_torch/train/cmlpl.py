@@ -13,29 +13,67 @@ and the other net's side of each contrastive term.
 The gathers, the step loop and ``fit`` are the shared driver's
 (:mod:`cmlpl_tpu_torch.train.driver`).
 
-Random streams: the noise views and both dropout masks come from the
-state's ``torch.Generator``, on the training device, in a fixed order.
+The opt-in extras (``cmlpl_tpu/train/cmlpl.py:235-268,279-293,355-402``):
+``augment`` transforms the gathered patches before the views are drawn;
+``extra_loss`` adds ``extra_weight`` times an extra term to each net's
+total and the metric ``extra_loss``; ``stack_nets`` runs both forwards as
+one batched forward (:func:`stacked_forward`).
+
+Random streams: every draw of a step comes from the state's
+``torch.Generator``, on the training device, in a fixed order: the
+augmentations (labeled, then unlabeled), the noise views, net B's then
+net E's dropout mask, the memory bank's choices.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call, vmap
 
+from cmlpl_tpu_torch.data.augment import (mixture_noise, radiation_noise,
+                                          random_flip, random_rot90)
+from cmlpl_tpu_torch.models.basenet import BaseNet2, joint_dim, keep_mask
 from cmlpl_tpu_torch.objectives.cmlpl import (adaptive_threshold,
                                               graph_contrastive,
                                               pseudo_label_graph,
                                               soft_consistency)
+from cmlpl_tpu_torch.objectives.contrastive import (memobank_contrastive,
+                                                    memobank_init, nt_xent)
+from cmlpl_tpu_torch.objectives.mmd import mmd_loss
 from cmlpl_tpu_torch.objectives.queue import (memory_smooth, queue_init,
                                               queue_update)
 from cmlpl_tpu_torch.objectives.supervised import cross_entropy
 from cmlpl_tpu_torch.ops.noise import two_net_views
-from cmlpl_tpu_torch.train.driver import TwoNetDriver, not_ported
+from cmlpl_tpu_torch.train.driver import TwoNetDriver
 from cmlpl_tpu_torch.train.state import CMLPLConfig, CMLPLTrainState
+from cmlpl_tpu_torch.weights import cmlpl_state_from_jax, cmlpl_state_to_jax
 
-#: metric keys of a step (``cmlpl_tpu/train/cmlpl.py:392-400``)
+#: metric keys of a step (``cmlpl_tpu/train/cmlpl.py:392-400``); the
+#: metric ``extra_loss`` is added when ``extra_loss`` is set
 METRICS = ("loss_contrast", "total_loss", "cls_loss", "con_loss",
            "total_loss_e", "acc", "mask_rate")
+EXTRA_LOSSES = ("", "memobank", "mmd", "ntxent")
+AUGMENTS = ("flip", "rot90", "radiation", "mixture")
+
+
+def stacked_forward(nets, xps, xs, keeps=None):
+    """The BaseNet2s ``nets`` on their inputs as ONE batched forward: a
+    ``torch.func.vmap`` of ``functional_call`` over their params stacked
+    on a leading axis, so each conv and product runs once at twice the
+    batch.  ``torch.stack`` is differentiable, so the gradients reach each
+    net's own params.  ``keeps``: the nets' dropout masks, stacked, drawn
+    by the caller (nothing random runs inside the vmap).  Returns the
+    nets' (logits, feat), stacked."""
+    names = [n for n, _ in nets[0].named_parameters()]
+    per_net = [dict(net.named_parameters()) for net in nets]
+    params = {n: torch.stack([p[n] for p in per_net]) for n in names}
+
+    def one(p, xp, x, keep):
+        return functional_call(nets[0], p, (xp, x), {"keep": keep})
+
+    return vmap(one, in_dims=(0, 0, 0, None if keeps is None else 0))(
+        params, torch.stack(xps), torch.stack(xs), keeps)
 
 
 class CMLPLTrainer(TwoNetDriver):
@@ -43,23 +81,70 @@ class CMLPLTrainer(TwoNetDriver):
     card unless the caller asks for the CPU)."""
 
     def __init__(self, config: CMLPLConfig, device=None):
-        if config.extra_loss or config.augment or config.stack_nets:
-            raise not_ported("extra_loss, augment and stack_nets", 9,
-                             "Extras")
+        if config.extra_loss not in EXTRA_LOSSES:
+            raise ValueError(f"unknown extra_loss {config.extra_loss!r}; "
+                             f"one of {EXTRA_LOSSES}")
+        unknown = set(config.augment) - set(AUGMENTS)
+        if unknown:
+            raise ValueError(f"unknown augment {sorted(unknown)}; any of "
+                             f"{AUGMENTS}")
         super().__init__(config, device)
 
     def new_state(self, params_b, params_e, run_seed: int
                   ) -> CMLPLTrainState:
         """A state from two BaseNet2 param trees in the JAX layout, fresh
-        Adam states and queues, and a generator seeded with ``run_seed``."""
+        Adam states, queues and (``extra_loss="memobank"``) bank, and a
+        generator seeded with ``run_seed``."""
         cfg = self.config
+        bank = None
+        if cfg.extra_loss == "memobank":
+            bank = memobank_init(cfg.num_classes, cfg.memobank_size,
+                                 cfg.feat_dim, self.device)
         return CMLPLTrainState(
             net_b=self._new_net(params_b), net_e=self._new_net(params_e),
             queue_w=queue_init(cfg.queue_size, cfg.feat_dim,
                                cfg.num_classes, self.device),
             queue_s=queue_init(cfg.queue_size, cfg.feat_dim,
                                cfg.num_classes, self.device),
-            generator=torch.Generator(self.device).manual_seed(run_seed))
+            generator=torch.Generator(self.device).manual_seed(run_seed),
+            bank=bank)
+
+    def state_to_jax(self, state: CMLPLTrainState) -> dict:
+        return cmlpl_state_to_jax(state)
+
+    def state_from_jax(self, tree, run_seed: int = 0) -> CMLPLTrainState:
+        return cmlpl_state_from_jax(tree, self, run_seed)
+
+    def _augmented(self, g, xp, labels=None):
+        """The configured augmentations of a patch batch, in the JAX
+        package's order; mixture only where ``labels`` are given."""
+        aug = self.config.augment
+        if "flip" in aug:
+            xp = random_flip(g, xp)
+        if "rot90" in aug:
+            xp = random_rot90(g, xp)
+        if "radiation" in aug:
+            xp = radiation_noise(g, xp)
+        if "mixture" in aug and labels is not None:
+            xp = mixture_noise(g, xp, labels)
+        return xp
+
+    def _forwards(self, g, net_b: BaseNet2, net_e: BaseNet2, xp_b, x_b,
+                  xp_e, x_e):
+        """((logits, feat) of net B, of net E): two forwards, or one
+        stacked forward whose dropout masks are drawn here, in the two
+        forwards' order and shapes."""
+        if not self.config.stack_nets:
+            return (net_b(xp_b, x_b, generator=g),
+                    net_e(xp_e, x_e, generator=g))
+        keeps = None
+        if net_b.dropout > 0 and net_b.training:
+            shape = (xp_b.shape[0], joint_dim(self.config.patch_size))
+            keeps = torch.stack([keep_mask(shape, net.dropout, g, xp_b.device)
+                                 for net in (net_b, net_e)])
+        logits, feat = stacked_forward((net_b, net_e), (xp_b, xp_e),
+                                       (x_b, x_e), keeps)
+        return (logits[0], feat[0]), (logits[1], feat[1])
 
     def _step(self, state: CMLPLTrainState, xp_l, x_l, xp_u, x_u, lab_y,
               epoch: int, batch_index: int) -> dict:
@@ -70,12 +155,16 @@ class CMLPLTrainer(TwoNetDriver):
         adap_mask_thr = adaptive_threshold(epoch, cfg.num_epochs, cfg.thr)
         warm = epoch > 0 or batch_index > cfg.queue_batch
 
+        if cfg.augment:
+            xp_l = self._augmented(g, xp_l, lab_y)
+            xp_u = self._augmented(g, xp_u)
         xp_b_all, x_b_all, xp_e_all, x_e_all = two_net_views(
             self.noisy, cfg.noise_fused, g, xp_l, x_l, xp_u, x_u)
         onehot = F.one_hot(lab_y, cfg.num_classes).float()
 
-        logits_b_all, feat_b_all = net_b(xp_b_all, x_b_all, generator=g)
-        logits_e_all, feat_e_all = net_e(xp_e_all, x_e_all, generator=g)
+        (logits_b_all, feat_b_all), (logits_e_all, feat_e_all) = \
+            self._forwards(g, net_b, net_e, xp_b_all, x_b_all, xp_e_all,
+                           x_e_all)
         lab_b, un_b = logits_b_all[:bt], logits_b_all[bt:]
         feat_lab_b, xs = feat_b_all[:bt], feat_b_all[bt:]
         lab_e, un_e = logits_e_all[:bt], logits_e_all[bt:]
@@ -121,16 +210,48 @@ class CMLPLTrainer(TwoNetDriver):
             + cfg.w_consistency * con_b
         total_e = cls_e + cfg.w_contrast * contrast_e \
             + cfg.w_consistency * con_e
+        if cfg.extra_loss:
+            extra_b, extra_e = self._extra(state, g, probs, xs, xw,
+                                           feat_lab_b, feat_lab_e)
+            total_b = total_b + cfg.extra_weight * extra_b
+            total_e = total_e + cfg.extra_weight * extra_e
 
         self._update(state, total_b + total_e, state.net_b.opt,
                      state.net_e.opt)
 
         with torch.no_grad():
             acc_e = (lab_e.argmax(dim=1) == lab_y).float().mean()
-        return {"loss_contrast": contrast_b.detach(),
-                "total_loss": total_b.detach(), "cls_loss": cls_b.detach(),
-                "con_loss": con_b.detach(), "total_loss_e": total_e.detach(),
-                "acc": acc_e, "mask_rate": mask.mean()}
+        metrics = {"loss_contrast": contrast_b.detach(),
+                   "total_loss": total_b.detach(),
+                   "cls_loss": cls_b.detach(), "con_loss": con_b.detach(),
+                   "total_loss_e": total_e.detach(), "acc": acc_e,
+                   "mask_rate": mask.mean()}
+        if cfg.extra_loss:
+            metrics["extra_loss"] = extra_b.detach()
+        return metrics
+
+    def _extra(self, state: CMLPLTrainState, g, probs, xs, xw, feat_lab_b,
+               feat_lab_e):
+        """(net B's, net E's) extra term (``cmlpl_tpu/train/cmlpl.py``
+        ``:355-388``); "memobank" replaces the state's bank."""
+        cfg = self.config
+        if cfg.extra_loss == "ntxent":
+            # the two nets' views of the same unlabeled samples
+            return (nt_xent(xs, xw.detach(), cfg.temperature),
+                    nt_xent(xs.detach(), xw, cfg.temperature))
+        if cfg.extra_loss == "mmd":
+            # labeled vs unlabeled feature distributions, per net
+            return mmd_loss(feat_lab_b, xs), mmd_loss(feat_lab_e, xw)
+        # U2PL InfoNCE: net E (the smoothed probs) teaches net B; the
+        # reference's percentile entropy split is a median split, with
+        # jnp.median's mean of the two middle values (torch.quantile)
+        ent = -torch.sum(probs * torch.log(probs + 1e-10), dim=1)
+        med = torch.quantile(ent, 0.5)
+        extra_b, state.bank = memobank_contrastive(
+            xs, xw.detach(), probs, probs.argmax(dim=1), ent <= med,
+            ent > med, state.bank, g, num_queries=32, num_negatives=16,
+            temperature=0.5)
+        return extra_b, torch.zeros((), device=xs.device)
 
     # ------------------------------------------------------------------ #
     def _format_log(self, epoch, batch_index, num_batches, m):

@@ -22,6 +22,7 @@ from cmlpl_tpu_torch.objectives.supervised import cross_entropy
 from cmlpl_tpu_torch.ops.noise import two_net_views
 from cmlpl_tpu_torch.train.driver import TwoNetDriver
 from cmlpl_tpu_torch.train.state import NetState
+from cmlpl_tpu_torch.weights import cps_state_from_jax, cps_state_to_jax
 
 
 @dataclasses.dataclass
@@ -46,6 +47,12 @@ class CPSTrainer(TwoNetDriver):
         return CPSTrainState(
             net_b=self._new_net(params_b), net_e=self._new_net(params_e),
             generator=torch.Generator(self.device).manual_seed(run_seed))
+
+    def state_to_jax(self, state: CPSTrainState) -> dict:
+        return cps_state_to_jax(state)
+
+    def state_from_jax(self, tree, run_seed: int = 0) -> CPSTrainState:
+        return cps_state_from_jax(tree, self, run_seed)
 
     def _step(self, state: CPSTrainState, xp_l, x_l, xp_u, x_u, lab_y,
               epoch: int, batch_index: int) -> dict:

@@ -6,11 +6,19 @@ patches and spectra), ``init_state`` and ``_format_log``.
 
 Gathers (``CMLPLConfig.gather_impl``): in "pool" mode, the default at the
 reference schedule, the unique pixels of one call (a run, an epoch or a
-step) are gathered once by CUDA kernel 1 (``ops/patch_gather.gather_pool``)
-and every step takes its rows by position; "pallas" and "pallas_bf16"
-launch a kernel twice a step; "xla" is the plain gather.  An "auto" whose
-pool is over the budget takes "pallas" on the card and "xla" on the CPU.
-Patches are inputs: nothing differentiates through a gather.
+step) are gathered once (``ops/patch_gather.gather_pool``): by CUDA
+kernel 1 in f32, or by kernel 2 from a bf16 cube when the inputs are bf16
+(``compute_dtype="bfloat16"`` with ``input_dtype="compute"``); every step
+takes its rows by position.  "pallas" and "pallas_bf16" launch a kernel
+twice a step; "xla" is the plain gather.  An "auto" whose pool is over the
+budget takes "pallas" on the card and "xla" on the CPU.  Patches and
+spectra are cast to the input dtype (``make_input_cast``), and the noise
+views are drawn in it.  Patches are inputs: nothing differentiates through
+a gather.
+
+Precision: a call's steps run with TF32 off, so the loss, queue and Adam
+math stays f32 under either compute dtype; a bf16 model's forward sets
+the switches for its own layers (``device.compute_precision``).
 
 The port runs every step from a Python loop.  What stays from the JAX
 driver is how much one call of the trainer covers, because that sets how
@@ -34,10 +42,11 @@ import numpy as np
 import torch
 
 from cmlpl_tpu_torch.data.prep import PreparedScene
-from cmlpl_tpu_torch.device import resolve_device
+from cmlpl_tpu_torch.device import compute_precision, resolve_device
 from cmlpl_tpu_torch.models.basenet import BaseNet2
 from cmlpl_tpu_torch.ops.noise import make_noiser
 from cmlpl_tpu_torch.ops.patch_gather import (gather_pool,
+                                              make_input_cast,
                                               make_train_gather,
                                               poolify_batches,
                                               resolve_train_gather)
@@ -67,12 +76,7 @@ class EpochDriver:
     runs the steps of a call and the epochs of a run."""
 
     def __init__(self, config: CMLPLConfig, device=None):
-        if config.compute_dtype != "float32":
-            raise not_ported(f"compute_dtype={config.compute_dtype!r} "
-                             "training", 5, "bf16 training paths")
-        # under f32 compute both input dtypes keep the inputs f32
-        if config.input_dtype not in ("compute", "float32"):
-            raise ValueError(f"unknown input_dtype {config.input_dtype!r}")
+        self.cast = make_input_cast(config.compute_dtype, config.input_dtype)
         self.device = resolve_device(device)
         config = dataclasses.replace(config, gather_impl=resolve_train_gather(
             config.gather_impl, self.device, num_unlabel=config.num_unlabel,
@@ -108,34 +112,39 @@ class EpochDriver:
         (state, metrics stacked (E, N) on the device)."""
         cfg = self.config
         dev = self.device
+        cast = self.cast
         w, cols = cfg.patch_size, scene.cols
         if cfg.gather_impl == "pool":
             pool, li, ui = poolify_batches(li, ui)
             xp_src, x_src = gather_pool(
-                scene.padded_pca, scene.spectra,
+                cast(scene.padded_pca), scene.spectra,
                 torch.from_numpy(pool).to(dev), cols=cols, w=w)
+            x_src = cast(x_src)
 
             def gather_xp(src, pos):
                 return src.index_select(0, pos)
         else:
-            xp_src, x_src = self._prep_cube(scene.padded_pca), scene.spectra
+            xp_src = self._prep_cube(scene.padded_pca)
+            x_src = cast(scene.spectra)
 
             def gather_xp(src, ids):
-                return self._gather(src, ids, cols, w)
+                return cast(self._gather(src, ids, cols, w))
 
         li, ui = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
                   for a in (li, ui))
         ly = torch.from_numpy(np.asarray(ly, np.int64)).to(dev)
         rows = []
-        for e, epoch in enumerate(epochs):
-            row = []
-            for i in range(li.shape[1]):
-                lab, unl = li[e, i], ui[e, i]
-                row.append(self._step(
-                    state, gather_xp(xp_src, lab), x_src.index_select(0, lab),
-                    gather_xp(xp_src, unl), x_src.index_select(0, unl),
-                    ly[e, i], epoch, first_batch + i))
-            rows.append(row)
+        with compute_precision("float32"):
+            for e, epoch in enumerate(epochs):
+                row = []
+                for i in range(li.shape[1]):
+                    lab, unl = li[e, i], ui[e, i]
+                    row.append(self._step(
+                        state, gather_xp(xp_src, lab),
+                        x_src.index_select(0, lab), gather_xp(xp_src, unl),
+                        x_src.index_select(0, unl), ly[e, i], epoch,
+                        first_batch + i))
+                rows.append(row)
         return state, {k: torch.stack([torch.stack([m[k] for m in row])
                                        for row in rows])
                        for k in rows[0][0]}

@@ -9,6 +9,7 @@ import dataclasses
 import torch
 
 from cmlpl_tpu_torch.models.basenet import BaseNet2
+from cmlpl_tpu_torch.objectives.contrastive import MemoBankState
 from cmlpl_tpu_torch.objectives.queue import QueueState
 
 
@@ -41,11 +42,13 @@ class CMLPLConfig:
     w_consistency: float = 4.0
     feat_dim: int = 1024
     seed: int = 1088
-    # "bfloat16" training is not ported yet (ROADMAP item 5)
+    # "float32" | "bfloat16": the dtype of the models' convolutions and
+    # dense layers (params, losses, queues and Adam stay f32)
     compute_dtype: str = "float32"
     # dtype of the gathered patches / spectra / noise views: "compute"
-    # stores them in the compute dtype, "float32" keeps them f32.  With
-    # training in f32 only, both keep them f32
+    # stores them in the compute dtype (under bf16 compute the pool is
+    # gathered by kernel 2 and the views are drawn in bf16), "float32"
+    # keeps them f32 (ops/patch_gather.make_input_cast)
     input_dtype: str = "compute"
     # accepted for the JAX package's CLI and configs, and without effect:
     # threefry and rbg have no PyTorch counterpart; the port draws from
@@ -65,11 +68,20 @@ class CMLPLConfig:
     #   "pallas_bf16" kernel 2 (bf16 cube) each step, twice; patch inputs
     #                 bf16-quantised, everything else f32
     gather_impl: str = "auto"
-    # not ported yet (ROADMAP item 9): the trainer raises when set
+    # CMLPL: both nets' forwards as ONE batched forward (torch.func.vmap
+    # over the stacked params); the same math as two forwards, with the
+    # dropout masks drawn in the same order.  A config field only, as in
+    # the JAX package
     stack_nets: bool = False
+    # CMLPL's opt-in extra objective, weighted by extra_weight: "" |
+    # "memobank" (U2PL InfoNCE, net E teaches net B, a per-class bank of
+    # memobank_size rows) | "mmd" (labeled/unlabeled feature MMD per net)
+    # | "ntxent" (SimCLR across the two nets' views)
     extra_loss: str = ""
     extra_weight: float = 0.1
     memobank_size: int = 256
+    # CMLPL's opt-in patch augmentations, any of "flip", "rot90",
+    # "radiation", "mixture" (data/augment.py)
     augment: tuple = ()
 
     @property
@@ -86,10 +98,11 @@ class NetState:
 @dataclasses.dataclass
 class CMLPLTrainState:
     """Mutable: a step updates the nets, the Adam states and the queues in
-    place and advances ``step``."""
+    place, replaces the bank and advances ``step``."""
     net_b: NetState          # "Base"  (train.py:118)
     net_e: NetState          # "Base1" (train.py:122)
     queue_w: QueueState      # smooths net E's probs (train.py:139-141)
     queue_s: QueueState      # smooths net B's probs (train.py:142-145)
-    generator: torch.Generator   # noise views and dropout masks
+    generator: torch.Generator   # every random draw of a step
     step: int = 0
+    bank: MemoBankState | None = None   # extra_loss="memobank" only

@@ -1,0 +1,85 @@
+"""Checkpoints and resume (``cmlpl_tpu/utils/checkpoint.py``).
+
+The directory contract is the JAX package's: ``<directory>/<step>/``, and
+a restore without a step takes the largest numeric one.  The format is the
+port's own, since orbax needs JAX: ``state.npz``, the trainer state as one
+flat ``/``-keyed npz in the JAX package's state layout
+(``net_b/params/conv1/kernel``, ``net_b/opt_state/0/mu/...``,
+``queue_w/feats``, ``bank/...``, ``step``; see ``weights.py``), and
+``generator.npy``, the bytes of the state's ``torch.Generator``
+(``get_state()``), the port's own leaf where the JAX state holds a key.
+
+A JAX user writes ``state.npz`` from ``jax.device_get(state)`` with numpy
+alone; a checkpoint without ``generator.npy`` restores with the generator
+seeded as ``*_state_from_jax`` seeds it.  A generator state restores only
+on the device type that saved it (the CPU's Mersenne Twister and CUDA's
+Philox keep different states).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+
+import numpy as np
+import torch
+
+from cmlpl_tpu_torch.weights import load_params_npz, save_params_npz
+
+STATE_FILE = "state.npz"
+GENERATOR_FILE = "generator.npy"
+
+
+class _Node(dict):
+    """One level of a nested dict, read as ``*_state_from_jax`` reads a
+    JAX state: fields by attribute, tuple entries by index."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def __getitem__(self, key):
+        value = super().__getitem__(str(key))
+        return _Node(value) if isinstance(value, dict) else value
+
+
+def save_checkpoint(directory: str, trainer, state,
+                    step: int | None = None) -> str:
+    """Write ``state`` (of ``trainer``, which gives its JAX-layout tree)
+    under ``<directory>/<step>/``, the state's step by default, replacing
+    one there; returns its path.  The files are written to a sibling
+    directory first and moved into place, so a run cut during a save
+    leaves the last whole checkpoint the latest."""
+    directory = os.path.abspath(directory)
+    path = os.path.join(directory, str(state.step if step is None else step))
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    save_params_npz(os.path.join(tmp, STATE_FILE),
+                    trainer.state_to_jax(state))
+    np.save(os.path.join(tmp, GENERATOR_FILE),
+            state.generator.get_state().numpy())
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_checkpoint(directory: str, trainer, step: int | None = None):
+    """The state of ``trainer`` saved under ``<directory>/<step>/``, the
+    largest numeric step by default; FileNotFoundError when there is
+    none."""
+    directory = os.path.abspath(directory)
+    if step is None:
+        steps = [int(d) for d in os.listdir(directory) if d.isdigit()]
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        step = max(steps)
+    path = os.path.join(directory, str(step))
+    state = trainer.state_from_jax(
+        _Node(load_params_npz(os.path.join(path, STATE_FILE))))
+    gen = os.path.join(path, GENERATOR_FILE)
+    if os.path.exists(gen):
+        state.generator.set_state(torch.from_numpy(np.load(gen)))
+    return state

@@ -9,6 +9,13 @@ disk a tree is a flat ``.npz`` whose keys are the paths joined by ``/``
 (for example ``"conv1/kernel"``), so a JAX user can write one from
 ``jax.device_get(params)`` with numpy alone, and the port reads it without
 JAX.
+
+A trainer state is carried in the same layout, the JAX package's state
+tree: ``*_state_from_jax`` builds the port's state from a numpy copy of a
+JAX state (or anything read the same way: fields by attribute, tuple
+entries by index), and ``*_state_to_jax`` is its inverse, the nested dict
+of numpy arrays that a checkpoint flattens (``utils/checkpoint.py``).  The
+JAX state's PRNG key has no counterpart and is not carried.
 """
 
 from __future__ import annotations
@@ -79,6 +86,37 @@ def _carry_adam(opt: torch.optim.Adam, module: torch.nn.Module,
                         "exp_avg_sq": nu[key].to(p.device)}
 
 
+def _adam_to_jax(opt: torch.optim.Adam, module: torch.nn.Module) -> dict:
+    """The optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) of
+    ``opt``'s moments for the params of ``module`` that it steps: the
+    inverse of :func:`_carry_adam`.  A param with no state yet (no step
+    taken) has optax's initial zeros."""
+    names = {p: n for n, p in module.named_parameters()}
+    mu, nu, count = {}, {}, 0
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st:
+                mu[names[p]], nu[names[p]] = st["exp_avg"], st["exp_avg_sq"]
+                count = int(st["step"])
+            else:
+                mu[names[p]] = nu[names[p]] = torch.zeros_like(p)
+    return {"count": np.int32(count), "mu": params_to_jax(mu),
+            "nu": params_to_jax(nu)}
+
+
+def _net_to_jax(net) -> dict:
+    """A ``NetState`` as the JAX package's: params and the optax state
+    ``(ScaleByAdamState, EmptyState)``, whose second entry has no
+    leaves."""
+    return {"params": params_to_jax(net.model.state_dict()),
+            "opt_state": {"0": _adam_to_jax(net.opt, net.model)}}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
 def _two_nets_from_jax(tree, state) -> None:
     """Both nets' Adam states and the step of a dual-BaseNet2 JAX state."""
     for jnet, net in ((tree.net_b, state.net_b), (tree.net_e, state.net_e)):
@@ -91,9 +129,10 @@ def cmlpl_state_from_jax(tree, trainer, run_seed: int = 0):
     JAX package's ``CMLPLTrainState``, built by ``trainer``
     (:class:`cmlpl_tpu_torch.train.cmlpl.CMLPLTrainer`).
 
-    Carries both nets' params and Adam states, both queues and ``step``.
-    The JAX key has no torch counterpart: the generator is seeded with
-    ``run_seed``."""
+    Carries both nets' params and Adam states, both queues, the memory
+    bank when the trainer keeps one (``extra_loss="memobank"``) and
+    ``step``.  The JAX key has no torch counterpart: the generator is
+    seeded with ``run_seed``."""
     state = trainer.new_state(tree.net_b.params, tree.net_e.params,
                               run_seed)
     _two_nets_from_jax(tree, state)
@@ -102,7 +141,28 @@ def cmlpl_state_from_jax(tree, trainer, run_seed: int = 0):
         q.feats.copy_(torch.tensor(np.asarray(jq.feats, np.float32)))
         q.probs.copy_(torch.tensor(np.asarray(jq.probs, np.float32)))
         q.ptr = int(np.asarray(jq.ptr))
+    if state.bank is not None:
+        for name in ("feats", "count", "ptr"):
+            getattr(state.bank, name).copy_(
+                torch.from_numpy(np.asarray(getattr(tree.bank, name))))
     return state
+
+
+def cmlpl_state_to_jax(state) -> dict:
+    """The JAX package's ``CMLPLTrainState`` tree of a port CMLPL state,
+    as nested dicts of numpy arrays, without the key: the inverse of
+    :func:`cmlpl_state_from_jax`."""
+    tree = {"net_b": _net_to_jax(state.net_b),
+            "net_e": _net_to_jax(state.net_e)}
+    for name in ("queue_w", "queue_s"):
+        q = getattr(state, name)
+        tree[name] = {"feats": _numpy(q.feats), "probs": _numpy(q.probs),
+                      "ptr": np.int32(q.ptr)}
+    tree["step"] = np.int32(state.step)
+    if state.bank is not None:
+        tree["bank"] = {name: _numpy(getattr(state.bank, name))
+                        for name in ("feats", "count", "ptr")}
+    return tree
 
 
 def cps_state_from_jax(tree, trainer, run_seed: int = 0):
@@ -114,6 +174,13 @@ def cps_state_from_jax(tree, trainer, run_seed: int = 0):
                               run_seed)
     _two_nets_from_jax(tree, state)
     return state
+
+
+def cps_state_to_jax(state) -> dict:
+    """The JAX package's ``CPSTrainState`` tree of a port CPS state,
+    without the key: the inverse of :func:`cps_state_from_jax`."""
+    return {"net_b": _net_to_jax(state.net_b),
+            "net_e": _net_to_jax(state.net_e), "step": np.int32(state.step)}
 
 
 def cct_state_from_jax(tree, trainer, run_seed: int = 0):
@@ -129,6 +196,15 @@ def cct_state_from_jax(tree, trainer, run_seed: int = 0):
     _carry_adam(state.opt_aug, state.model, tree.opt_aug[0])
     state.step = int(np.asarray(tree.step))
     return state
+
+
+def cct_state_to_jax(state) -> dict:
+    """The JAX package's ``CCTTrainState`` tree of a port CCT state,
+    without the key: the inverse of :func:`cct_state_from_jax`."""
+    return {"params": params_to_jax(state.model.state_dict()),
+            "opt_base": {"0": _adam_to_jax(state.opt_base, state.model)},
+            "opt_aug": {"0": _adam_to_jax(state.opt_aug, state.model)},
+            "step": np.int32(state.step)}
 
 
 def _init_layers(rng, shapes: Mapping) -> dict:

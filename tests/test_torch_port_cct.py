@@ -43,6 +43,7 @@ from cmlpl_tpu_torch.train.state import CMLPLConfig
 from cmlpl_tpu_torch.weights import (cct_state_from_jax, init_cct_params,
                                      load_params_npz, params_to_jax,
                                      save_params_npz, state_dict_from_jax)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 N_PC, W, BANDS, NCLS = 16, 20, 103, 9
 JOINT = 64 * (W // 4) ** 2 + 1024

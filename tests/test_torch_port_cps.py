@@ -34,6 +34,7 @@ from cmlpl_tpu_torch.train import CPSTrainer
 from cmlpl_tpu_torch.train.state import CMLPLConfig
 from cmlpl_tpu_torch.weights import (basenet2_state_dict_from_jax,
                                      cps_state_from_jax, params_to_jax)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 N_PC, W = 16, 20
 TINY = dict(num_classes=9, num_features=103, n_pc=N_PC, patch_size=W,

@@ -18,6 +18,7 @@ from cmlpl_tpu_torch.data.io import synthetic_scene
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.data.splits import generate_splits
 from cmlpl_tpu_torch.registry import DATASETS
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def test_registry_matches():

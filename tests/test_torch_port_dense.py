@@ -32,6 +32,7 @@ from cmlpl_tpu_torch.models.basenet import BaseNet2
 from cmlpl_tpu_torch.weights import (init_basenet2_params, init_cct_params,
                                      load_params_npz, save_params_npz,
                                      state_dict_from_jax)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 W, N_PC = 20, 16
 SHAPE = dict(n_pc=N_PC, num_features=103, num_classes=9, patch_size=W)
@@ -96,6 +97,31 @@ def test_dense_differs_from_the_tiled_map_by_conv_padding_only(scenes):
     dense = dense_scene_logits(sd, scene)
     np.testing.assert_allclose(dense.numpy(), tiled.numpy(), rtol=0,
                                atol=2e-5)
+
+
+def test_dense_convolutions_run_with_tf32_off(scenes, monkeypatch):
+    """The dense pass is f32 whatever the process's TF32 switches (cuDNN's
+    default is TF32 on), and leaves them as it found them."""
+    _, scene = scenes
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(tuple(f.allow_tf32 for f in flags))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    saved = tuple(f.allow_tf32 for f in flags)
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        dense_scene_logits(state_dict_from_jax(_tree("basenet2")), scene)
+        assert seen == [(False, False)] * 3
+        assert all(f.allow_tf32 for f in flags)
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
 
 
 def test_dense_needs_w_a_multiple_of_4():

@@ -21,6 +21,7 @@ from cmlpl_tpu_torch.data.patches import (gather_patches, gather_spectra,
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                               gather_patches_f32)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 # (rows, cols, C, w, B, extra pad): the shapes of tests/test_pallas.py —
 # w 20 and 8 over a 30x22x8 scene, odd w 9 with the extra row/col, and a

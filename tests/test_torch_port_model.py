@@ -13,6 +13,7 @@ from cmlpl_tpu_torch.models.common import avg_pool2, l2_normalize
 from cmlpl_tpu_torch.weights import (basenet2_state_dict_from_jax,
                                      init_basenet2_params, load_params_npz,
                                      save_params_npz)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 W, N_PC, BANDS, NCLS = 20, 16, 103, 9
 
@@ -126,15 +127,36 @@ def test_common_blocks(rng):
                                rtol=1e-6)
 
 
-def test_tf32_follows_compute_dtype():
+def test_tf32_follows_compute_dtype(rng, monkeypatch):
+    """Inside a model's convolutions the TF32 switches follow its compute
+    dtype (on under bf16, off under f32); building and running a bf16 then
+    an f32 model leaves the process's switches as they were, whatever
+    they were."""
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(tuple(f.allow_tf32 for f in flags))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+    xp, x = (torch.from_numpy(a[:2]) for a in _inputs(rng))
+    saved = tuple(f.allow_tf32 for f in flags)
     try:
-        BaseNet2(n_pc=N_PC, compute_dtype="bfloat16")
-        assert torch.backends.cudnn.allow_tf32
-        assert torch.backends.cuda.matmul.allow_tf32
-        BaseNet2(n_pc=N_PC, compute_dtype="float32")
-        assert not torch.backends.cudnn.allow_tf32
-        assert not torch.backends.cuda.matmul.allow_tf32
+        for before in ((True, False), (False, True)):
+            for f, v in zip(flags, before):
+                f.allow_tf32 = v
+            for dtype, tf32 in (("bfloat16", True), ("float32", False)):
+                seen.clear()
+                model = BaseNet2(num_features=BANDS, n_pc=N_PC,
+                                 compute_dtype=dtype)
+                assert tuple(f.allow_tf32 for f in flags) == before
+                model(xp, x)
+                assert seen == [(tf32, tf32)] * 3
+                assert tuple(f.allow_tf32 for f in flags) == before
         with pytest.raises(ValueError):
             BaseNet2(n_pc=N_PC, compute_dtype="float16")
     finally:
-        BaseNet2(n_pc=N_PC, compute_dtype="float32")
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v

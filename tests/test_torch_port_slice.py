@@ -25,6 +25,7 @@ from cmlpl_tpu_torch.eval.metrics import cal_accuracy
 from cmlpl_tpu_torch.models.basenet import BaseNet2
 from cmlpl_tpu_torch.weights import (basenet2_state_dict_from_jax,
                                      init_basenet2_params, save_params_npz)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 W, N_PC, TILE = 20, 16, 128
 #: a pixel may differ between the maps only where JAX's two best logits

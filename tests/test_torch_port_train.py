@@ -55,6 +55,7 @@ from cmlpl_tpu_torch.train.state import CMLPLConfig
 from cmlpl_tpu_torch.weights import (basenet2_params_to_jax,
                                      basenet2_state_dict_from_jax,
                                      init_basenet2_params)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -422,17 +423,6 @@ def test_params_to_jax_inverts_the_transplant():
             a, b = back[name][leaf], params[name][leaf]
             assert a.shape == b.shape and a.dtype == b.dtype
             assert np.array_equal(a, b)
-
-
-@pytest.mark.parametrize("what,kw", [
-    ("extra_loss", {"extra_loss": "mmd"}),
-    ("augment", {"augment": ("flip",)}),
-    ("stack_nets", {"stack_nets": True}),
-    ("compute_dtype", {"compute_dtype": "bfloat16"})])
-def test_unported_options_raise(what, kw):
-    item = "item 5" if what == "compute_dtype" else "item 9"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        CMLPLTrainer(CMLPLConfig(**kw), device="cpu")
 
 
 def test_config_defaults_equal():

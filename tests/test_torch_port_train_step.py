@@ -45,6 +45,7 @@ from cmlpl_tpu_torch.train.state import CMLPLConfig
 from cmlpl_tpu_torch.weights import (basenet2_params_to_jax,
                                      basenet2_state_dict_from_jax,
                                      cmlpl_state_from_jax)
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 N_PC, W = 16, 20
 TINY = dict(num_classes=9, num_features=103, n_pc=N_PC, patch_size=W,
