@@ -23,8 +23,12 @@ training: ``cli.train --compute_dtype bfloat16`` with the default schedule
 against the CPU, and the 12-seed OA of bf16 ``cli.train``; a 4-epoch
 ``cli.train`` with a checkpoint an epoch, a fault injected after epoch 2
 and one restart; one epoch with each extra objective and with the
-augmentations, and a stacked against an unstacked CMLPL step.  Every phase
-prints one JSON line; the card's name and power limit, then a ``kernels``
+augmentations, and a stacked against an unstacked CMLPL step.  Then the
+comparison zoo: kernel 1 (and kernel 2 once) at every zoo (w, C) at
+B = 512 and 45; three supervised steps of each of the nine ``ZOO`` models
+on the card against the CPU; ``cli.train_backbone`` for each, 100 epochs
+at its defaults; and each model's mean OA against the JAX package's bank
+(``docs/zoo_jax_seeds.json``).  Every phase prints one JSON line; the card's name and power limit, then a ``kernels``
 line (launches on the main path, error, times and bounds) come before the
 last line, ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without that line; so it does without CUDA.
@@ -100,6 +104,27 @@ BF16_FLIPPED_MAX_SHARE = 2e-2
 # 1-2% of a tensor's largest on the CPU for the same two-forward step)
 STACK_LOSS_RTOL, STACK_GRAD_TOL = CARD_CPU_LOSS_RTOL, CARD_CPU_GRAD_TOL
 RESUME_EPOCHS, FAIL_AT_EPOCH = 4, 2
+# the comparison zoo (cli.train_backbone): the labeled split's batch (5
+# labels a class), the CLI docstring's epochs, and the flags that one
+# model each adds to its run
+ZOO_BATCH, ZOO_EPOCHS, ZOO_STEPS_CHECKED = 45, 100, 3
+ZOO_EXTRA = {"ssrn": ["--ema_teacher", "0.95"],
+             "dbda": ["--augment", "flip", "rot90", "radiation"],
+             "basenet1": ["--epoch_samples", "1280"]}
+# BN running statistics after ZOO_STEPS_CHECKED card-vs-CPU steps: a conv
+# bias read only by train-mode BNs has an exact gradient of 0, so Adam
+# steps it by rounding on either device (up to lr a step), and it shifts
+# those BNs' running means by (1 - momentum) of that, momentum 0.9 at most
+# a gradient tensor whose largest entry is not 0 but below this share of
+# the model's largest is rounding: its exact value is 0.  On the CPU at a
+# random init such tensors of the zoo lie under 4e-6 of it, all others
+# above 2e-3
+ROUNDING_ONLY = 1e-4
+ZOO_STATS_ATOL = CARD_CPU_PARAM_ATOL + 0.1 * ZOO_STEPS_CHECKED * 2 * 5e-4
+# zoo_ab: the models trained against docs/zoo_jax_seeds.json, each at
+# the bank's seeds
+ZOO_AB_MODELS = ("basenet1", "basenet2", "basenet2_zoo", "ssftt", "dbda",
+                 "dbda_feature", "ssrn", "fdssc", "msvit")
 
 
 class CheckFailed(RuntimeError):
@@ -302,37 +327,37 @@ def phase_kernels(scene, device):
 
 
 def gather_times(wrapper, cube, id_list, cols: int,
-                 rounds: int = TIMING_ROUNDS) -> dict:
+                 rounds: int = TIMING_ROUNDS, w: int = W) -> dict:
     """Per-launch times of a gather kernel over the id tensors of
-    ``id_list`` (one launch each) beside the plain gather's, one PyTorch
-    library call's and the byte bound."""
+    ``id_list`` (one launch each, windows of ``w``) beside the plain
+    gather's, one PyTorch library call's and the byte bound."""
     from cmlpl_tpu_torch.data.patches import clamped_starts, gather_patches
 
     elt = cube.element_size()
-    rc = [clamped_starts(t, cols, cube.shape[0], cube.shape[1], W)
+    rc = [clamped_starts(t, cols, cube.shape[0], cube.shape[1], w)
           for t in id_list]
     # library yardstick: every window as a view, one advanced index per
     # call; (B, C, w, w) viewed as (B, w, w, C)
-    windows = cube.unfold(0, W, 1).unfold(1, W, 1)
+    windows = cube.unfold(0, w, 1).unfold(1, w, 1)
 
     def library(r, c):
         return windows[r, c].permute(0, 2, 3, 1)
 
     require(torch.equal(library(*rc[0]), gather_patches(
-        cube, id_list[0], cols=cols, w=W)), "library call differs")
+        cube, id_list[0], cols=cols, w=w)), "library call differs")
     args = [(t,) for t in id_list]
-    ms = cuda_ms(lambda t: wrapper(cube, t, cols=cols, w=W), args, rounds)
-    plain_ms = cuda_ms(lambda t: gather_patches(cube, t, cols=cols, w=W),
+    ms = cuda_ms(lambda t: wrapper(cube, t, cols=cols, w=w), args, rounds)
+    plain_ms = cuda_ms(lambda t: gather_patches(cube, t, cols=cols, w=w),
                        args, rounds)
     library_ms = cuda_ms(library, rc, rounds)
     # the profiler misses a window's first launch: give it several
-    device_ms = kernel_device_ms(lambda t: wrapper(cube, t, cols=cols, w=W),
+    device_ms = kernel_device_ms(lambda t: wrapper(cube, t, cols=cols, w=w),
                                  args * rounds, "patch_gather_kernel")
     library_device_ms = call_device_ms(library, rc * rounds)
     # bytes the function must move per launch: each output written once,
     # the ids and each cube pixel that its windows touch read once
     touched = 0
-    off = torch.arange(W, device=cube.device)
+    off = torch.arange(w, device=cube.device)
     for r, c in rc:
         mask = torch.zeros(cube.shape[:2], dtype=torch.bool,
                            device=cube.device)
@@ -340,7 +365,7 @@ def gather_times(wrapper, cube, id_list, cols: int,
              (c[:, None] + off)[:, None, :]] = True
         touched += int(mask.sum())
     batch = id_list[0].shape[0]
-    out_bytes = batch * W * W * cube.shape[-1] * elt
+    out_bytes = batch * w * w * cube.shape[-1] * elt
     in_bytes = touched / len(id_list) * cube.shape[-1] * elt + batch * 4
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_device_ms,
@@ -547,32 +572,9 @@ def phase_card_vs_cpu(cube, gt, device, algo: str, flags_at_start,
     # bf16's own move of the step-1 gradients, on each device
     bf16_move = ({"card": grad_gap(gc, f32_grads[0]),
                   "cpu": grad_gap(gh, f32_grads[1])} if bf16 else None)
-    # weights with no gradient in any step on either side (a head's
-    # columns whose features are 0 on every row) never move: held equal
-    still = [(r == 0) & (q == 0) for r, q in zip(rms, rms_c)]
-    well = [(r > ILL_CONDITIONED * (a - b).abs().max()) | z
-            for r, a, b, z in zip(rms, gc, gh, still)]
-    diff = [(a - b).abs() for a, b in zip(pc, ph)]
-
-    def worst(parts):
-        return max((float(p.max()) for p in parts if p.numel()), default=0.0)
-
-    # within half of the weight's step, whatever its gradient
-    tight = [(a - b).abs() <= CARD_CPU_PARAM_ATOL * adams
-             + CARD_CPU_PARAM_RTOL * b.abs() for a, b in zip(pc, ph)]
-    param_err = {
-        "max_abs_diff": worst(diff),
-        "well_conditioned": worst(d[m] for d, m in zip(diff, well)),
-        "ill_conditioned": worst(d[~m] for d, m in zip(diff, well)),
-        "ill_conditioned_weights": int(sum(int((~m).sum()) for m in well)),
-        "held_to_adams_reach": int(sum(int((~m & ~t).sum())
-                                       for m, t in zip(well, tight))),
-        "beyond_half_lr": int(sum(int((d > cfg.lr / 2).sum())
-                                  for d in diff)),
-        "no_gradient_weights": int(sum(int(z.sum()) for z in still)),
-        "no_gradient_max_abs_diff": worst(d[z] for d, z in zip(diff, still)),
-        "weights": int(sum(d.numel() for d in diff)),
-        "above_1e-5": int(sum(int((d > 1e-5).sum()) for d in diff))}
+    param_err, tight_ok = param_gap(
+        [(a - b).abs().max() for a, b in zip(gc, gh)], pc, ph, rms, rms_c,
+        adams, cfg.lr)
     name = "train" if algo == "cmlpl" else f"train_{algo}"
     emit({"phase": f"{name}_card_vs_cpu" + ("_bf16" if bf16 else ""),
           "steps": steps, "gather": "pool", "compute_dtype": compute_dtype,
@@ -603,24 +605,72 @@ def phase_card_vs_cpu(cube, gt, device, algo: str, flags_at_start,
                 f"{algo} bf16: too many weights stepped the other way: "
                 f"{param_err}")
         return gc, gh
+    require_f32_steps(algo, mc, mh, grad_err, param_err, tight_ok, adams,
+                      cfg.lr, steps)
+    return gc, gh
+
+
+def param_gap(gaps, pc, ph, rms, rms_c, adams: int, lr: float,
+              rounding_only=None):
+    """(report, held) of card-vs-CPU params ``pc``/``ph`` after f32 steps
+    from one state, given each tensor's card-vs-CPU gradient gap (its
+    largest difference) and each weight's gradient RMS (Adam's
+    bias-corrected second moment) on each device: ``held`` is True when
+    every well-conditioned weight lies within half of its step (see
+    CARD_CPU_PARAM_*).  The weights of the tensors flagged in
+    ``rounding_only`` (an exact gradient of 0) are held to Adam's reach
+    alone and left out of the share held so."""
+    rounding_only = rounding_only or [False] * len(pc)
+    # weights with no gradient in any step on either side (a head's
+    # columns whose features are 0 on every row) never move: held equal
+    still = [(r == 0) & (q == 0) for r, q in zip(rms, rms_c)]
+    well = [(r > ILL_CONDITIONED * gap) | z
+            for r, gap, z in zip(rms, gaps, still)]
+    diff = [(a - b).abs() for a, b in zip(pc, ph)]
+
+    def worst(parts):
+        return max((float(p.max()) for p in parts if p.numel()), default=0.0)
+
+    # within half of the weight's step, whatever its gradient
+    tight = [(a - b).abs() <= CARD_CPU_PARAM_ATOL * adams
+             + CARD_CPU_PARAM_RTOL * b.abs() for a, b in zip(pc, ph)]
+    report = {
+        "max_abs_diff": worst(diff),
+        "well_conditioned": worst(d[m] for d, m in zip(diff, well)),
+        "ill_conditioned": worst(d[~m] for d, m in zip(diff, well)),
+        "ill_conditioned_weights": int(sum(int((~m).sum()) for m in well)),
+        "held_to_adams_reach": int(sum(int((~m & ~t).sum())
+                                       for m, t, r in zip(well, tight,
+                                                          rounding_only)
+                                       if not r)),
+        "rounding_only_weights": int(sum(d.numel() for d, r in zip(
+            diff, rounding_only) if r)),
+        "beyond_half_lr": int(sum(int((d > lr / 2).sum()) for d in diff)),
+        "no_gradient_weights": int(sum(int(z.sum()) for z in still)),
+        "no_gradient_max_abs_diff": worst(d[z] for d, z in zip(diff, still)),
+        "weights": int(sum(d.numel() for d in diff)),
+        "above_1e-5": int(sum(int((d > 1e-5).sum()) for d in diff))}
+    return report, all(t[m].all() for t, m in zip(tight, well))
+
+
+def require_f32_steps(what: str, mc, mh, grad_err, param_err, held: bool,
+                      adams: int, lr: float, steps: int) -> None:
+    """The f32 card-vs-CPU holds: losses, step-1 gradients, params."""
     for k in mc:
         require(np.allclose(mc[k], mh[k], rtol=CARD_CPU_LOSS_RTOL,
                             atol=CARD_CPU_LOSS_ATOL),
-                f"{algo}: card vs CPU {k}: {mc[k]} vs {mh[k]}")
+                f"{what}: card vs CPU {k}: {mc[k]} vs {mh[k]}")
     require(grad_err <= CARD_CPU_GRAD_TOL,
-            f"{algo}: card vs CPU step-1 gradients: {grad_err} of the "
-            "tensor's max")
-    require(all(t[m].all() for t, m in zip(tight, well)),
-            f"{algo}: card vs CPU params: {param_err}")
+            f"{what}: card vs CPU step-1 gradients {grad_err} apart")
+    require(held, f"{what}: card vs CPU params: {param_err}")
     # Adam's reach: up to lr a step on either side, from each Adam that
     # steps the weight (CCT's encoder takes two: 3 * 2 * 2 * lr)
-    require(param_err["ill_conditioned"] <= 3 * 2 * adams * cfg.lr,
-            f"{algo}: card vs CPU params beyond Adam's reach: {param_err}")
+    require(param_err["ill_conditioned"] <= steps * 2 * adams * lr,
+            f"{what}: card vs CPU params beyond Adam's reach: {param_err}")
     require(param_err["held_to_adams_reach"]
             <= ILL_CONDITIONED_MAX_SHARE * param_err["weights"],
-            f"{algo}: card vs CPU: too many weights held only to Adam's "
+            f"{what}: card vs CPU: too many weights held only to Adam's "
             f"reach: {param_err}")
-    return gc, gh
 
 
 def grad_gap(got, want) -> float:
@@ -677,17 +727,9 @@ def train_cli_run(main_fn, tmp, name: str, counter_fn, maps, extra=(),
                             if k != "step"}}
 
 
-def profiled_window(trainer, tscene) -> dict:
-    """A profiled window of 20 default-schedule steps (after 5 unprofiled
-    ones), and the same window unprofiled for the idle share."""
-    state = trainer.init_state(SEED)
-    li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
-    trainer.train_epoch(state, tscene, li[:5], ly[:5], ui[:5], 1)
-
-    def window(lo):
-        trainer.train_epoch(state, tscene, li[lo:lo + 20],
-                            ly[lo:lo + 20], ui[lo:lo + 20], 1)
-
+def profile_window(window) -> dict:
+    """``window(lo)`` runs 20 steps from step ``lo``: one pass from 5 under
+    the profiler, one from 25 on the host clock for the idle share."""
     dev_ms, calls, prof_wall_ms = profiled(window, [(5,)])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -701,10 +743,21 @@ def profiled_window(trainer, tscene) -> dict:
     bf16_ms = sum(v for k, v in dev_ms.items() if "bf16" in k.lower())
     return {"steps": 20, "wall_ms_unprofiled": window_ms,
             "wall_ms_profiled": prof_wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_ms_per_step": busy_ms / 20,
             "device_idle_share": 1 - busy_ms / window_ms,
             "bf16_named_kernels_ms": bf16_ms,
             "top_device_ops_ms": [{"name": k[:110], "ms": v,
                                    "calls": calls[k]} for k, v in top]}
+
+
+def profiled_window(trainer, tscene) -> dict:
+    """A profiled window of 20 default-schedule steps (after 5 unprofiled
+    ones), and the same window unprofiled for the idle share."""
+    state = trainer.init_state(SEED)
+    li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
+    trainer.train_epoch(state, tscene, li[:5], ly[:5], ui[:5], 1)
+    return profile_window(lambda lo: trainer.train_epoch(
+        state, tscene, li[lo:lo + 20], ly[lo:lo + 20], ui[lo:lo + 20], 1))
 
 
 def accuracy(acc) -> dict:
@@ -1193,6 +1246,341 @@ def phase_dense(params, cube, scene, tiled_map, tiled_map_s: float):
           "note": "random weights on the synthetic PaviaU-size scene"})
 
 
+# --------------------------------------------------------------------------
+# slice 5: the comparison zoo (cli.train_backbone)
+# --------------------------------------------------------------------------
+
+def zoo_shapes() -> dict:
+    """{model: (w, n_pc)} of every ZOO entry at PaviaU width (its own
+    defaults, -1 = all 103 bands)."""
+    from cmlpl_tpu_torch.models.zoo import ZOO
+    from cmlpl_tpu_torch.registry import get_dataset
+
+    bands = get_dataset(DATA_ID).num_bands
+    return {name: (e.default_patch,
+                   bands if e.default_n_pc == -1 else e.default_n_pc)
+            for name, e in ZOO.items()}
+
+
+def phase_zoo_kernels(device):
+    """Kernel 1 vs the plain gather, bitwise, at every (w, C) of the zoo
+    at PaviaU width (610x340, cubes of random values, as the gather reads
+    them): a map tile (B = 512; tile 123 and the ragged last) and a
+    training step (B = 45, the labeled split); kernel 2 the same at (9,
+    103).  Then each site's times over a map's 406 tiles and 100 steps,
+    as ``phase_kernels`` takes them."""
+    from cmlpl_tpu_torch.data.patches import gather_patches, patch_pad_width
+    from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
+                                                  gather_patches_f32)
+
+    rows, cols = 610, 340
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    tiles = map_tiles(rows * cols, device)
+    steps = [torch.randint(0, rows * cols, (ZOO_BATCH,), generator=g,
+                           device=device, dtype=torch.int32)
+             for _ in range(100)]
+    sites = {}
+    for name, shape in zoo_shapes().items():
+        sites.setdefault(shape, []).append(name)
+    report = {"patch_gather_f32": {}, "patch_gather_bf16": {}}
+    for (w, c), models in sites.items():
+        hw = patch_pad_width(w)
+        cube = torch.randn(rows + 2 * hw, cols + 2 * hw, c, generator=g,
+                           device=device)
+        kernels = [("patch_gather_f32", gather_patches_f32, cube)]
+        if (w, c) == (9, 103):
+            kernels.append(("patch_gather_bf16", gather_patches_bf16,
+                            cube.to(torch.bfloat16)))
+        for kname, wrapper, cb in kernels:
+            for label, ids in ((f"zoo map tile B=512 w={w} C={c}", tiles),
+                               (f"zoo step B={ZOO_BATCH} w={w} C={c}",
+                                steps)):
+                for t in (ids[123 % len(ids)], ids[-1]):
+                    got = wrapper(cb, t, cols=cols, w=w)
+                    want = gather_patches(cb, t, cols=cols, w=w)
+                    torch.cuda.synchronize()
+                    require(got.shape == want.shape == (t.shape[0], w, w, c)
+                            and got.dtype == cb.dtype,
+                            f"{kname} {label}: shape/dtype")
+                    require(torch.equal(bits(got), bits(want)),
+                            f"{kname} {label}: not bitwise equal to the "
+                            "plain gather")
+                times = gather_times(wrapper, cb, ids, cols, w=w)
+                report[kname][label] = {"models": models, "max_abs_err": 0.0,
+                                        "launches_timed": len(ids), **times}
+                emit({"phase": "zoo_kernels", "kernel": kname,
+                      "case": label, "bitwise_equal": True,
+                      **report[kname][label]})
+    return report
+
+
+def phase_zoo_card_vs_cpu(cube, gt, device, flags_at_start) -> dict:
+    """Each ZOO entry at its PaviaU-width shapes: ZOO_STEPS_CHECKED
+    supervised steps of the labeled split (B = 45) from one state
+    (``init_state(SEED)``: numpy draws, the same weights on both devices)
+    on the card and on the CPU, BN in train mode.  Dropout draws its masks
+    from one CPU generator per call, so SSFTT's and FDSSC's masks are the
+    same on both.  Losses, step-1 gradients and params are held as
+    ``phase_card_vs_cpu`` holds the trainers, BN statistics within
+    ZOO_STATS_ATOL.  Returns the card scenes, by model, for ``zoo_train``."""
+    import dataclasses
+
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.models import common
+    from cmlpl_tpu_torch.models.zoo import build_model
+    from cmlpl_tpu_torch.registry import get_dataset
+    from cmlpl_tpu_torch.train.supervised import SupervisedTrainer
+
+    spec = get_dataset(DATA_ID)
+    labels = gt.reshape(-1).astype(np.int32)
+    train = generate_splits(labels, num_label=5).train
+    li, ly = SupervisedTrainer._schedule(train, labels, ZOO_BATCH,
+                                         ZOO_STEPS_CHECKED, None, 1088)
+    masks_drawn = []
+
+    def same_mask(shape, rate, generator, dev):
+        gen = torch.Generator().manual_seed(SEED + len(masks_drawn))
+        masks_drawn.append(tuple(shape))
+        return (torch.rand(shape, generator=gen) < 1.0 - rate).to(dev)
+
+    def run(name, w, n_pc, scene):
+        masks_drawn.clear()
+        t0 = time.perf_counter()
+        trainer = SupervisedTrainer(name, spec, patch_size=w, n_pc=n_pc,
+                                    device=scene.device)
+        state = trainer.init_state(SEED)
+        params = list(state.model.parameters())
+        losses, grads = [], []
+        for i in range(ZOO_STEPS_CHECKED):
+            state, m = trainer.train_step(state, scene, li[i], ly[i])
+            losses.append(float(m["cls_loss"]))
+            # BaseNet2Zoo's feature head has no gradient: CE reads only
+            # the logits
+            grads.append([torch.zeros(p.shape) if p.grad is None
+                          else p.grad.cpu().clone() for p in params])
+        rms = [(state.opt.state[p]["exp_avg_sq"].cpu()
+                / (1 - 0.999 ** float(state.opt.state[p]["step"]))).sqrt()
+               if p in state.opt.state else torch.zeros(p.shape)
+               for p in params]
+        return ({"cls_loss": np.array(losses)}, grads,
+                [p.detach().cpu().clone() for p in params], rms,
+                {k: v.cpu() for k, v in state.model.named_buffers()},
+                trainer.gather_impl, list(masks_drawn),
+                time.perf_counter() - t0)
+
+    keep_mask = common.keep_mask
+    common.keep_mask = same_mask
+    scenes, out, holds = {}, {}, []
+    try:
+        for name, (w, n_pc) in zoo_shapes().items():
+            # prepared once, on the CPU; the same tensors on the card
+            cpu_scene = prepare_scene(DATA_ID, cube=cube, gt=gt,
+                                      patch_size=w, n_pc=n_pc, device="cpu")
+            scenes[name] = dataclasses.replace(
+                cpu_scene, padded_pca=cpu_scene.padded_pca.to(device),
+                spectra=cpu_scene.spectra.to(device))
+            names = [k for k, _ in build_model(name, spec, n_pc, w)[0]
+                     .named_parameters()]
+            (mc, gc, pc, rms_c, st_c, impl_c, masks_c, card_s) = run(
+                name, w, n_pc, scenes[name])
+            (mh, gh, ph, rms, st_h, impl_h, masks_h, cpu_s) = run(
+                name, w, n_pc, cpu_scene)
+            # a conv bias that only train-mode BNs read has an exact
+            # gradient of 0: both devices compute rounding, which no bound
+            # can hold to each other; Adam's reach holds its weights
+            top = max(float(g.abs().max()) for g in gh[0])
+            noise = [0 < float(g.abs().max()) < ROUNDING_ONLY * top
+                     for g in gh[0]]
+            kept = [(a, b) for a, b, n in zip(gc[0], gh[0], noise) if not n]
+            # each tensor's gap over its own largest entry (reported), and
+            # over the model's largest gradient (held): the 3-D models'
+            # BN reductions over 45x9x9x49 entries cancel, and the card's
+            # f32 sums keep fewer digits of them than the CPU's (its f64
+            # sums equal the CPU's to 1e-11)
+            grad_err = max(float((a - b).abs().max()) for a, b in kept) / top
+            tensor_err = grad_gap(*zip(*kept))
+            # a weight's conditioning from its tensor's gradient gap over
+            # all the steps: PAM's q/k/v convs have an exact gradient of 0
+            # at step 1 (gamma starts at 0), not after it
+            gaps = [max(float((a - b).abs().max()) for a, b in steps)
+                    for steps in zip(*(zip(c, h) for c, h in zip(gc, gh)))]
+            param_err, held = param_gap(gaps, pc, ph, rms, rms_c, 1, 5e-4,
+                                        noise)
+            stats_err = max((float((st_c[k] - st_h[k]).abs().max())
+                             for k in st_h), default=0.0)
+            out[name] = {"w": w, "n_pc": n_pc, "losses_card":
+                         mc["cls_loss"].tolist(), "losses_cpu":
+                         mh["cls_loss"].tolist(), "dropout_masks":
+                         len(masks_c),
+                         "step1_grad_max_diff_of_model_max": grad_err,
+                         "step1_grad_max_diff_of_tensor_max": tensor_err,
+                         "rounding_only_tensors": [
+                             k for k, n in zip(names, noise) if n],
+                         "params_max_abs_diff": param_err,
+                         "batch_stats_max_abs_diff": stats_err,
+                         "card_s": card_s, "cpu_s": cpu_s}
+            emit({"phase": "zoo_card_vs_cpu", "model": name, **out[name]})
+            holds.append((name, impl_c, impl_h, masks_c == masks_h,
+                          tf32_flags(), mc, mh, grad_err, param_err, held,
+                          st_c, st_h))
+    finally:
+        common.keep_mask = keep_mask
+    # every model reported, then held
+    for (name, impl_c, impl_h, same_masks, flags, mc, mh, grad_err,
+         param_err, held, st_c, st_h) in holds:
+        require((impl_c, impl_h) == ("pallas", "xla"),
+                f"{name}: auto gather {impl_c} on the card, {impl_h} on the "
+                "CPU")
+        require(same_masks, f"{name}: dropout masks differ")
+        require(flags == flags_at_start,
+                f"{name}: the trainer left TF32 at {flags}")
+        require(np.all(np.isfinite(mc["cls_loss"])),
+                f"{name}: card loss not finite")
+        require(param_err["no_gradient_max_abs_diff"] == 0,
+                f"{name}: a weight with no gradient moved: {param_err}")
+        require_f32_steps(name, mc, mh, grad_err, param_err, held, 1, 5e-4,
+                          ZOO_STEPS_CHECKED)
+        for k in st_h:
+            require(torch.allclose(st_c[k], st_h[k],
+                                   rtol=CARD_CPU_PARAM_RTOL,
+                                   atol=ZOO_STATS_ATOL),
+                    f"{name}: card vs CPU BN statistics {k}: "
+                    f"{float((st_c[k] - st_h[k]).abs().max())}")
+    return scenes
+
+
+def zoo_window(name: str, scene) -> dict:
+    """``profile_window`` of 20 supervised steps (B = 45) of ``name`` on
+    ``scene``, after 5 unprofiled ones."""
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.train.supervised import SupervisedTrainer
+
+    trainer = SupervisedTrainer(name, scene.spec, patch_size=scene.patch_size,
+                                n_pc=scene.n_pc, device=scene.device)
+    train = generate_splits(scene.labels, num_label=5).train
+    li, ly = trainer._schedule(train, scene.labels, ZOO_BATCH, 45, None, 1)
+    state = trainer.init_state(SEED)
+    trainer.train_run(state, scene, li[:5], ly[:5])
+    return profile_window(lambda lo: trainer.train_run(
+        state, scene, li[lo:lo + 20], ly[lo:lo + 20]))
+
+
+def phase_zoo_train(tmp, scenes, counter_fn) -> dict:
+    """``cli.train_backbone --dataID 1 --model <m> --num_epochs 100`` for
+    every ZOO entry at its defaults (ZOO_EXTRA adds an EMA teacher, the
+    augmentations and --epoch_samples to one model each): kernel 1 once a
+    step in training ("auto" on the card), a map's tiles (406; two maps
+    with the EMA teacher), kernel 2 never; the history finite, the last epoch's
+    cls_loss below the first's; then a profiled window of 20 steps.
+    Returns kernel 1's training launches by model."""
+    from cmlpl_tpu_torch.cli import train_backbone
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+
+    launches, report = {}, {}
+    for name, (w, n_pc) in zoo_shapes().items():
+        extra = ZOO_EXTRA.get(name, [])
+        metrics = os.path.join(tmp, f"zoo_{name}.csv")
+        for wrapper in WRAPPERS:
+            wrapper.launches = 0
+        acc, lines, counts = run_cli(train_backbone.main, [
+            "--dataID", str(DATA_ID), "--model", name, "--num_epochs",
+            str(ZOO_EPOCHS), "--data_root", tmp, "--save_path_prefix",
+            os.path.join(tmp, "zoo"), "--metrics_csv", metrics, *extra],
+            counter_fn)
+        total = counter_fn()
+        train_s, in_training = line_value(lines, counts, "training time")
+        steps = int(re.search(r"\((\d+) steps\)", next(
+            ln for ln in lines if ln.startswith("training time"))).group(1))
+        maps = [name] + ([f"{name} EMA teacher"]
+                         if "--ema_teacher" in extra else [])
+        map_s = {m: line_value(lines, counts,
+                               f"full-scene inference time ({m})")[0]
+                 for m in maps}
+        per_epoch = steps // ZOO_EPOCHS
+        tiles = -(-scenes[name].num_pixels // TILE)
+        require(steps == ZOO_EPOCHS * (28 if "--epoch_samples" in extra
+                                       else 1), f"{name}: {steps} steps")
+        require(in_training == (steps, 0),
+                f"{name}: training launches (f32, bf16) {in_training}")
+        require(total == (steps + tiles * len(maps), 0),
+                f"{name}: launches with the maps {total}")
+        hist = read_history(metrics)
+        require(all(np.isfinite(v).all() for v in hist.values()),
+                f"{name}: a training metric is not finite")
+        cls = hist["cls_loss"].reshape(ZOO_EPOCHS, per_epoch).mean(axis=1)
+        require(cls[-1] < cls[0], f"{name}: cls_loss by epoch {cls[[0, -1]]}")
+        launches[name] = in_training[0]
+        report[name] = {
+            "w": w, "n_pc": n_pc, "flags": extra, "steps": steps,
+            "train_s": train_s, "ms_per_step": train_s / steps * 1e3,
+            "map_s": map_s, "launches_training": in_training[0],
+            "launches_maps": total[0] - in_training[0],
+            "oa": acc.oa, "aa": acc.aa, "kappa": acc.kappa,
+            "cls_loss_first_last_epoch": [float(cls[0]), float(cls[-1])],
+            "profiled_window": zoo_window(name, scenes[name])}
+        emit({"phase": "zoo_train", "model": name, **report[name]})
+    emit({"phase": "zoo_train_summary", "models": {
+        k: {f: v[f] for f in ("ms_per_step", "map_s", "oa")}
+        | {"idle_share": v["profiled_window"]["device_idle_share"]}
+        for k, v in report.items()},
+        "note": "synthetic PaviaU-size scene substituted for the absent "
+                ".mat; OA says the run learns, not how well on PaviaU"})
+    return launches
+
+
+def phase_zoo_ab(ab, scene_npz) -> None:
+    """Mean OA of the port's ``cli.train_backbone`` on the card against
+    the JAX package's bank (``docs/zoo_jax_seeds.json``,
+    ``scripts/zoo_jax_seeds.py``): the same hard scene, splits and flags,
+    and for each of ZOO_AB_MODELS the bank's seeds (from its first, as
+    many as it holds for the model); |mean difference| within
+    max(AB_MAX_DIFF, two standard errors)."""
+    from cmlpl_tpu_torch.cli import train_backbone
+
+    with open(os.path.join(ROOT, "docs", "zoo_jax_seeds.json")) as f:
+        bank = json.load(f)
+    out = {}
+    for name in ZOO_AB_MODELS:
+        ref = np.array(bank["models"][name]["oa"])
+        ours, secs = [], []
+        for s in range(len(ref)):
+            t0 = time.perf_counter()
+            acc, _, _ = run_cli(train_backbone.main, [
+                *bank["port_cli_flags"], "--model", name, "--scene_npz",
+                scene_npz, "--splits_dir", ab, "--save_path_prefix", ab,
+                "--seed", str(bank["first_seed"] + s)], lambda: None)
+            secs.append(time.perf_counter() - t0)
+            ours.append(acc.oa * 100)
+        o = np.array(ours)
+        diff = float(o.mean() - ref.mean())
+        two_se = 2 * float(np.sqrt(ref.var(ddof=1) / len(ref)
+                                   + o.var(ddof=1) / len(o)))
+        gate = max(AB_MAX_DIFF, two_se)
+        out[name] = {"ours": ours, "ours_mean": float(o.mean()),
+                     "jax_mean": float(ref.mean()), "jax_n": len(ref),
+                     "mean_diff": diff, "two_se": two_se, "gate": gate,
+                     "sec_per_seed": secs}
+        emit({"phase": "zoo_ab", "model": name, **out[name]})
+        require(abs(diff) <= gate,
+                f"zoo_ab {name}: mean OA {diff:+.2f} points from JAX's "
+                f"(gate {gate:.2f})")
+
+
+def run_zoo(cube, gt, device, flags_at_start, counter_fn):
+    """The slice-5 phases; returns (kernel report at the zoo's sites, kernel
+    1's training launches by model)."""
+    kernels = phase_zoo_kernels(device)
+    scenes = phase_zoo_card_vs_cpu(cube, gt, device, flags_at_start)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_zoo_train(tmp, scenes, counter_fn)
+        del scenes
+        phase_zoo_ab(*ab_inputs(tmp))
+    require(tf32_flags() == flags_at_start,
+            f"TF32 left at {tf32_flags()}, found at {flags_at_start}")
+    return kernels, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1229,6 +1617,9 @@ def main() -> int:
     emit({"phase": "build", "build_s": time.perf_counter() - t0,
           "library": os.path.relpath(lib_path, ROOT),
           "ptxas": [ln for ln in ptxas.splitlines() if "Used" in ln]})
+
+    def counter_fn():
+        return (gather_patches_f32.launches, gather_patches_bf16.launches)
 
     spec = get_dataset(DATA_ID)
     params = init_basenet2_params(SEED, n_pc=N_PC,
@@ -1435,9 +1826,6 @@ def main() -> int:
         phase_card_vs_cpu(cube, gt, device, algo, flags_at_start, "bfloat16",
                           f32_grads.pop(algo))
 
-    def counter_fn():
-        return (gather_patches_f32.launches, gather_patches_bf16.launches)
-
     with tempfile.TemporaryDirectory() as tmp:
         pool_launches = {"cmlpl": phase_train(tmp, cube, tscene,
                                               counter_fn)}
@@ -1455,6 +1843,12 @@ def main() -> int:
                  "bf16_ab")
     require(tf32_flags() == flags_at_start,
             f"TF32 left at {tf32_flags()}, found at {flags_at_start}")
+
+    # 6. the comparison zoo (slice 5): kernel 1 at the zoo's shapes, each
+    # model's steps on the card vs the CPU, cli.train_backbone for each,
+    # and the OA A/B against the JAX package's bank
+    zoo_kernels, zoo_launches = run_zoo(cube, gt, device, flags_at_start,
+                                        counter_fn)
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"],
                 "patch_gather_bf16":
@@ -1477,6 +1871,11 @@ def main() -> int:
             bf16_launches["cps"],
             "cli.train_cct --compute_dtype bfloat16, 1 epoch, training":
             bf16_launches["cct"]}}
+    for name, n in zoo_launches.items():
+        flags = " ".join(ZOO_EXTRA.get(name, []))
+        launches_train["patch_gather_f32"][
+            f"cli.train_backbone --model {name} {flags}".rstrip()
+            + ", training (auto: kernel 1 a step)"] = n
     require(all(n > 0 for n in launches.values()),
             f"a kernel was not launched on the main path: {launches}")
     require(all(n > 0 for d in launches_train.values() for n in d.values()),
@@ -1491,7 +1890,8 @@ def main() -> int:
                         "replaces": replaces[name],
                         "launches": launches[name], **rep,
                         "launches_train": launches_train[name],
-                        "train_shapes": train_gather[name]})
+                        "train_shapes": train_gather[name]
+                        | zoo_kernels[name]})
     emit({"total_s": time.perf_counter() - t_start, "card": card})
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -214,19 +214,30 @@ def build_config(args, spec) -> CMLPLConfig:
     )
 
 
-def build_data(args, device):
-    """(spec, scene on ``device``, splits, sampler) from the flags."""
+def build_scene(args, device, patch_size: int | None = None,
+                n_pc: int | None = None):
+    """(spec, scene on ``device``, splits) from the flags; the scene's
+    patch size and channels are ``--w`` and ``--n_PC`` unless given."""
     spec = get_dataset(args.dataID)
     cube = gt = None
     if args.scene_npz:
         with np.load(args.scene_npz) as z:
             cube, gt = z["cube"], z["gt"]
-    scene = prepare_scene(spec, root=args.data_root, patch_size=args.w,
-                          n_pc=args.n_PC, cube=cube, gt=gt, device=device)
+    scene = prepare_scene(
+        spec, root=args.data_root,
+        patch_size=args.w if patch_size is None else patch_size,
+        n_pc=args.n_PC if n_pc is None else n_pc, cube=cube, gt=gt,
+        device=device)
     if args.splits_dir:
         splits = load_splits(args.splits_dir)
     else:
         splits = generate_splits(scene.labels, num_label=args.num_label)
+    return spec, scene, splits
+
+
+def build_data(args, device):
+    """(spec, scene on ``device``, splits, sampler) from the flags."""
+    spec, scene, splits = build_scene(args, device)
     sampler = SemiSupervisedSampler(
         splits, scene.labels, args.labeled_batch_size,
         args.unlabeled_batch_size, num_unlabel=args.num_unlabel,
@@ -367,14 +378,16 @@ def timed_fit(trainer, state, scene, sampler, log_every: int,
     return state, history
 
 
-def scene_map(args, scene, model_fn, params, name: str) -> np.ndarray:
+def scene_map(args, scene, model_fn, params, name: str,
+              spectra: bool = True) -> np.ndarray:
     """The full-scene map of a trained model with ``--eval_gather``:
     ``model_fn(xp, x) -> logits`` for the tiled modes, its ``state_dict``
-    ``params`` for "dense".  Prints the "full-scene inference time (<name>)
-    == <s>s" line."""
-    predictor = ScenePredictor(model_fn, params=params, patch_size=args.w,
-                               cols=scene.cols, tile=args.val_batch_size,
-                               gather=args.eval_gather)
+    ``params`` for "dense"; ``spectra=False`` for a model of patches only.
+    Prints the "full-scene inference time (<name>) == <s>s" line."""
+    predictor = ScenePredictor(model_fn, params=params,
+                               patch_size=scene.patch_size, cols=scene.cols,
+                               tile=args.val_batch_size,
+                               gather=args.eval_gather, spectra=spectra)
     t0 = time.perf_counter()
     pred = predictor(scene)
     print(f"full-scene inference time ({name}) == "

@@ -133,12 +133,14 @@ class ScenePredictor:
     INPUTS are bf16-quantised then upcast, so boundary pixels can flip
     class vs f32), "xla" (the plain PyTorch gather), "auto" (see
     :func:`resolve_gather`), or "dense" (:func:`dense_scene_logits` from
-    ``params``, no gather and no ``model``).
+    ``params``, no gather and no ``model``).  ``spectra=False`` is for a
+    model of patches only (a zoo "patch" model): its ``x`` is None and no
+    spectra are gathered.
     """
 
     def __init__(self, model: Callable | None, *, patch_size: int,
                  cols: int, tile: int = 4096, gather: str = "auto",
-                 params: Mapping | None = None):
+                 params: Mapping | None = None, spectra: bool = True):
         if gather not in GATHERS:
             raise ValueError(f"unknown gather {gather!r}; one of {GATHERS}")
         if gather == "dense" and params is None:
@@ -149,6 +151,7 @@ class ScenePredictor:
         self.cols = cols
         self.tile = tile
         self.gather = gather
+        self.spectra = spectra
 
     def _gather_fn(self, mode: str):
         w, cols = self.patch_size, self.cols
@@ -182,7 +185,8 @@ class ScenePredictor:
         preds = torch.empty(padded_k, dtype=torch.int32, device=device)
         for start in range(0, padded_k, tile):
             ids = idx[start:start + tile]
-            logits = self.model(gather(cube, ids),
-                                gather_spectra(scene.spectra, ids))
+            x = (gather_spectra(scene.spectra, ids) if self.spectra
+                 else None)
+            logits = self.model(gather(cube, ids), x)
             preds[start:start + tile] = torch.argmax(logits, dim=-1)
         return preds[:k].cpu().numpy()

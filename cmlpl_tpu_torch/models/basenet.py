@@ -1,6 +1,7 @@
 """BaseNet2, the CMLPL and CPS backbone (reference ``tools/models.py:97-152``;
-JAX counterpart ``cmlpl_tpu/models/basenet.py:34-76``), and the CCT family:
-``CCTNet``, ``Decoder`` and ``LinearClassifier`` (``:113-196``).
+JAX counterpart ``cmlpl_tpu/models/basenet.py:34-76``), the zoo's
+BaseNet1 (``:79-110``), and the CCT family: ``CCTNet``, ``Decoder`` and
+``LinearClassifier`` (``:113-196``).
 
 The public input is NHWC ``(B, w, w, n_pc)`` as in the JAX package.  The
 patch is viewed as NCHW with channels-last strides for cuDNN, and the
@@ -17,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cmlpl_tpu_torch.device import compute_precision
-from cmlpl_tpu_torch.models.common import avg_pool2, l2_normalize
+from cmlpl_tpu_torch.models.common import (avg_pool2, dropout,  # noqa: F401
+                                           keep_mask, l2_normalize)
 
 FEAT_DIM = 1024       # spectral feature width (models.py:119)
 
@@ -104,6 +106,30 @@ class BaseNet2(_Stem):
         return logits.float(), feat
 
 
+class BaseNet1(_Stem):
+    """Simpler dual-branch net (conpared_models.py:192-247): BaseNet2's
+    stem, then a 256-d joint feature ``feat_ss`` over the concat, ReLU,
+    dropout and the classifier.  Returns (logits, the 256-d feature before
+    its ReLU); f32."""
+
+    def __init__(self, num_features: int = 103, dropout: float = 0.0,
+                 num_classes: int = 9, n_pc: int = 5, patch_size: int = 20):
+        super().__init__(num_features, n_pc, "float32")
+        self.dropout = dropout
+        self.feat_ss = nn.Linear(joint_dim(patch_size), 256)
+        self.classifier = nn.Linear(256, num_classes)
+
+    def forward(self, xp: torch.Tensor, x: torch.Tensor,
+                generator: torch.Generator | None = None):
+        with compute_precision("float32"):
+            h, y = self.stem(xp, x)
+            feat = self.feat_ss(torch.cat([h, y], dim=1))
+            z = F.relu(feat)
+            if self.dropout > 0 and self.training:
+                z = dropout(z, self.dropout, generator)
+            return self.classifier(z), feat
+
+
 class CCTNet(_Stem):
     """CCT encoder (models.py:229-287): BaseNet2's stem returning the f32
     joint feature twice.  ``with_decoder`` adds ``feat_ss`` and the
@@ -180,24 +206,3 @@ class LinearClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x)
-
-
-def keep_mask(shape, rate: float, generator: torch.Generator | None,
-              device) -> torch.Tensor:
-    """Flax's ``nn.Dropout`` mask: keep each element with probability
-    ``1 - rate`` (a uniform draw below it)."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
-
-
-def dropout(z: torch.Tensor, rate: float, generator: torch.Generator | None,
-            keep: torch.Tensor | None = None) -> torch.Tensor:
-    """Flax's ``nn.Dropout``: the elements of ``keep`` (drawn from
-    ``generator`` by :func:`keep_mask` when None) scaled by
-    ``1 / (1 - rate)``, the others 0."""
-    p = 1.0 - rate
-    if p <= 0.0:
-        return torch.zeros_like(z)
-    if keep is None:
-        keep = keep_mask(z.shape, rate, generator, z.device)
-    return torch.where(keep, z / p, torch.zeros((), dtype=z.dtype,
-                                                device=z.device))

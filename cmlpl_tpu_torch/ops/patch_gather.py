@@ -131,19 +131,22 @@ TRAIN_GATHERS = ("auto", "xla", "pallas", "pallas_bf16", "pool")
 
 
 def resolve_gather_impl(gather_impl: str, *, num_unlabel: int,
-                        patch_size: int, n_pc: int,
-                        num_labeled: int = 0) -> str:
+                        patch_size: int, n_pc: int, num_labeled: int = 0,
+                        pool_supported: bool = True) -> str:
     """Resolve the "auto" training-gather knob to a concrete impl, as the
     JAX package does.
 
     "auto" picks the pre-gathered pool (the same patch values as "xla")
-    whenever the pool's worst-case f32 footprint fits
-    ``POOL_AUTO_BUDGET_BYTES``, else the per-step "xla" gather.  The worst
-    case is at most ``num_unlabel`` unlabeled + ``num_labeled`` labeled
-    unique pixels, rounded up to ``POOL_BUCKET``.  Explicit impl names pass
-    through."""
+    whenever the trainer supports one and the pool's worst-case f32
+    footprint fits ``POOL_AUTO_BUDGET_BYTES``, else the per-step "xla"
+    gather.  The worst case is at most ``num_unlabel`` unlabeled +
+    ``num_labeled`` labeled unique pixels, rounded up to ``POOL_BUCKET``.
+    The supervised trainer has no pool (``pool_supported=False``).
+    Explicit impl names pass through."""
     if gather_impl != "auto":
         return gather_impl
+    if not pool_supported:
+        return "xla"
     uniques = max(num_unlabel + num_labeled, 1)
     pool_rows = -(-uniques // POOL_BUCKET) * POOL_BUCKET
     pool_bytes = pool_rows * patch_size * patch_size * n_pc * 4
@@ -152,15 +155,17 @@ def resolve_gather_impl(gather_impl: str, *, num_unlabel: int,
 
 def resolve_train_gather(gather_impl: str, device: torch.device, *,
                          num_unlabel: int, patch_size: int, n_pc: int,
-                         num_labeled: int = 0) -> str:
+                         num_labeled: int = 0,
+                         pool_supported: bool = True) -> str:
     """The trainer's gather on ``device``: :func:`resolve_gather_impl`,
-    except that on the card an "auto" whose pool is over the budget takes
-    kernel 1 each step ("pallas", bitwise equal to "xla") instead of the
-    plain gather.  The plain gather runs on the card only when "xla" is
-    asked for by name."""
+    except that on the card an "auto" that resolves to the plain gather (a
+    pool over the budget, or a trainer with no pool) takes kernel 1 each
+    step ("pallas", bitwise equal to "xla") instead.  The plain gather runs
+    on the card only when "xla" is asked for by name."""
     impl = resolve_gather_impl(gather_impl, num_unlabel=num_unlabel,
                                patch_size=patch_size, n_pc=n_pc,
-                               num_labeled=num_labeled)
+                               num_labeled=num_labeled,
+                               pool_supported=pool_supported)
     if gather_impl == "auto" and impl == "xla" and device.type == "cuda":
         return "pallas"
     return impl

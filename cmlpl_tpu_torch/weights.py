@@ -1,10 +1,14 @@
 """Carrying weights and trainer states between the JAX package and the port.
 
 The interchange format is the flax param tree in the JAX layout: conv
-kernels (H, W, in, out), dense kernels (in, out), one ``bias`` per layer,
-layers nested as the flax modules are (BaseNet2's ``conv1``, the CCT
-tree's ``encoder/conv1`` and ``dec_base/fc``).  The torch ``state_dict``
-key of a layer is its path joined by ``.`` (``encoder.conv1.weight``).  On
+kernels (H, W, in, out) or (H, W, D, in, out), dense kernels (in, out),
+norms' ``scale`` and ``bias``, free params (``gamma``, embeddings) by
+name, layers nested as the flax modules are (BaseNet2's ``conv1``, the CCT
+tree's ``encoder/conv1`` and ``dec_base/fc``, DBDA's ``trunk/conv11``); a
+zoo model's BatchNorm statistics are the separate ``batch_stats`` tree
+(``mean``/``var``), torch's ``running_mean``/``running_var``.  The torch
+``state_dict`` key of a layer is its path joined by ``.``
+(``encoder.conv1.weight``).  On
 disk a tree is a flat ``.npz`` whose keys are the paths joined by ``/``
 (for example ``"conv1/kernel"``), so a JAX user can write one from
 ``jax.device_get(params)`` with numpy alone, and the port reads it without
@@ -25,45 +29,108 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from cmlpl_tpu_torch.models import common
 from cmlpl_tpu_torch.models.basenet import FEAT_DIM, joint_dim
 
 
-def state_dict_from_jax(params, prefix: str = "") -> dict[str, torch.Tensor]:
-    """``state_dict`` of a flax param tree (nested mappings of arrays):
-    every mapping that holds a ``kernel`` is a layer; 4-D kernels are convs
-    (HWIO -> OIHW), 2-D ones dense ((in, out) -> (out, in))."""
+#: torch weight dims -> the permutation to the flax kernel (conv HWIO /
+#: DHWIO, dense (in, out)); its inverse below
+_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
+def state_dict_from_jax(params, prefix: str = "",
+                        batch_stats=None) -> dict[str, torch.Tensor]:
+    """``state_dict`` of a flax param tree (nested mappings of arrays),
+    with the running statistics of ``batch_stats`` (the tree of a model's
+    BatchNorm ``mean``/``var``) when given.
+
+    A ``kernel`` is a conv's (2-D HWIO -> OIHW, 3-D DHWIO -> OIDHW) or a
+    dense layer's ((in, out) -> (out, in)) ``weight``; a norm's ``scale``
+    is its ``weight``; every other leaf (``bias``, PReLU's
+    ``negative_slope``, ``gamma``, embeddings) keeps its name."""
     sd = {}
     for name, sub in params.items():
         path = prefix + name
-        if "kernel" not in sub:
-            sd.update(state_dict_from_jax(sub, path + "."))
+        if isinstance(sub, Mapping):
+            stats = None if batch_stats is None else batch_stats.get(name)
+            sd.update(state_dict_from_jax(sub, path + ".", stats))
             continue
-        k = np.asarray(sub["kernel"], np.float32)
-        k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
-        sd[f"{path}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
-        sd[f"{path}.bias"] = torch.from_numpy(
-            np.asarray(sub["bias"], np.float32).copy())
+        a = np.array(sub, np.float32)
+        if name == "kernel":
+            name = "weight"
+            a = np.array(a.transpose(_FROM_FLAX[a.ndim]), order="C")
+        elif name == "scale":
+            name = "weight"
+            if batch_stats is not None:
+                for leaf in ("mean", "var"):
+                    sd[f"{prefix}running_{leaf}"] = torch.from_numpy(
+                        np.asarray(batch_stats[leaf], np.float32).copy())
+        sd[prefix + name] = torch.from_numpy(a)
     return sd
 
 
 def params_to_jax(state_dict) -> dict:
     """The flax param tree (numpy f32) of a ``state_dict``: the inverse of
-    :func:`state_dict_from_jax` (conv OIHW -> HWIO, dense (out, in) ->
-    (in, out))."""
+    :func:`state_dict_from_jax` (a ``weight`` of 2, 4 or 5 dims is a
+    kernel, of 1 dim a norm's ``scale``); the running statistics go to
+    :func:`batch_stats_to_jax`."""
     params: dict = {}
     for key, w in state_dict.items():
         *path, leaf = key.split(".")
-        if leaf != "weight":
+        if leaf in ("running_mean", "running_var", "num_batches_tracked"):
             continue
-        w = w.detach().cpu().numpy()
+        w = w.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            leaf = "kernel" if w.ndim > 1 else "scale"
+            if w.ndim > 1:
+                w = w.transpose(_TO_FLAX[w.ndim])
         node = params
         for name in path:
             node = node.setdefault(name, {})
-        node["kernel"] = np.ascontiguousarray(
-            w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T, np.float32)
-        node["bias"] = (state_dict[".".join(path + ["bias"])].detach().cpu()
-                        .numpy().astype(np.float32))
+        node[leaf] = np.array(w, order="C")
     return params
+
+
+def batch_stats_to_jax(state_dict) -> dict:
+    """The flax ``batch_stats`` tree (``mean``/``var`` per BatchNorm) of a
+    ``state_dict``'s running statistics; {} for a model without them."""
+    stats: dict = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        if leaf not in ("running_mean", "running_var"):
+            continue
+        node = stats
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf[len("running_"):]] = t.detach().cpu().numpy().astype(
+            np.float32)
+    return stats
+
+
+def zoo_state_dict_from_jax(name: str, variables) -> dict[str, torch.Tensor]:
+    """``state_dict`` of zoo model ``name`` from its flax ``variables``
+    (``{"params": ..., "batch_stats": ...}``, the latter absent or empty
+    for a model without BatchNorm), running statistics included."""
+    _zoo_entry(name)
+    stats = variables.get("batch_stats") or None
+    return state_dict_from_jax(variables["params"], batch_stats=stats)
+
+
+def zoo_variables_to_jax(name: str, state_dict) -> dict:
+    """The flax ``{"params", "batch_stats"}`` of a zoo model's
+    ``state_dict``: the inverse of :func:`zoo_state_dict_from_jax`."""
+    _zoo_entry(name)
+    return {"params": params_to_jax(state_dict),
+            "batch_stats": batch_stats_to_jax(state_dict)}
+
+
+def _zoo_entry(name: str):
+    from cmlpl_tpu_torch.models.zoo import ZOO
+
+    if name.lower() not in ZOO:
+        raise KeyError(f"unknown zoo model {name!r}; one of {sorted(ZOO)}")
+    return ZOO[name.lower()]
 
 
 # the names the two had when they carried BaseNet2's tree only
@@ -276,3 +343,131 @@ def load_params_npz(path: str) -> dict:
                 node = node.setdefault(name, {})
             node[leaf] = z[key]
     return params
+
+
+# --------------------------------------------------------------------------
+# the comparison zoo and the supervised trainer
+# --------------------------------------------------------------------------
+
+#: zoo models whose layers all take torch's default init (``tconv``/
+#: ``tdense``, ``cmlpl_tpu/models/common.py``); the others take flax's
+#: defaults but in the layers of :func:`_torch_init`
+TORCH_INIT_MODELS = ("basenet1", "basenet2", "basenet2_zoo")
+
+
+def _torch_init(name: str, path: tuple) -> bool:
+    """Whether the layer at ``path`` of zoo model ``name`` is built by
+    ``tconv``/``tdense``: every layer of the BaseNets, PAM's q/k/v convs
+    (``attention.py:26-28``, DBDA's ``attention_spatial``) and SSFTT's
+    transformer (``ssftt.py:30,44,59,62``)."""
+    return (name in TORCH_INIT_MODELS or "attention_spatial" in path
+            or (name == "ssftt" and path[:1] == ("transformer",)))
+
+#: flax's init of the zoo's free-standing params, by name
+#: (``cmlpl_tpu/models/{attention,ssftt,msvit}.py``)
+_RAW_INITS = {"gamma": common.zeros, "token_wA": common.xavier_normal,
+              "token_wV": common.xavier_normal, "cls_token": common.zeros,
+              "pos_embedding": common.normal(0.02),
+              "branch_weight": common.ones, "negative_slope":
+              common.constant(0.01)}
+
+
+def _zoo_variables(name: str, spec, n_pc: int, patch_size: int) -> dict:
+    """``{"params", "batch_stats"}`` of a zoo model as built (torch's
+    default values; only the tree and shapes are used), the global
+    generator left as it was."""
+    from cmlpl_tpu_torch.models.zoo import build_model
+
+    with torch.random.fork_rng():
+        model, _ = build_model(name, spec, n_pc, patch_size)
+    return zoo_variables_to_jax(name, model.state_dict())
+
+
+def init_zoo_params(name: str, seed, *, spec, n_pc: int,
+                    patch_size: int) -> dict:
+    """Random ``{"params", "batch_stats"}`` of zoo model ``name`` in the
+    JAX layout, drawn from the distributions of the JAX model's own
+    initialisers (``seed``: anything ``numpy.random.default_rng`` takes).
+
+    The layers the JAX models build with ``tconv``/``tdense`` take torch's
+    default bounds (:func:`_torch_init`).  The others take flax's defaults:
+    LeCun-normal kernels (truncated), zero biases, unit norm scales, and
+    the explicit draws of the JAX models: SSFTT's ``token_wA``/``token_wV``
+    (Xavier normal), ``pos_embedding`` (normal 0.02) and head (Xavier
+    uniform kernel, normal 1e-6 bias, ``ssftt.py:121-142``), MSViT's zero
+    position embeddings and unit branch weights, CAM/PAM's zero ``gamma``,
+    PReLU's 0.01.  Running statistics start at mean 0, var 1."""
+    name = name.lower()
+    rng = np.random.default_rng(seed)
+    tree = _zoo_variables(name, spec, n_pc, patch_size)
+
+    def draw(node: Mapping, path: tuple) -> dict:
+        out = {}
+        for leaf, value in node.items():
+            if isinstance(value, Mapping):
+                out[leaf] = draw(value, path + (leaf,))
+                continue
+            shape = value.shape
+            layer = path[-1] if path else ""
+            torch_init = _torch_init(name, path)
+            if leaf == "kernel":
+                init = (common.torch_uniform if torch_init
+                        else common.xavier_uniform
+                        if (name, path) == ("ssftt", ("head",))
+                        else common.lecun_normal)
+                out[leaf] = init(rng, shape)
+            elif leaf == "bias" and "kernel" in node and torch_init:
+                out[leaf] = common.torch_uniform(
+                    rng, shape, int(np.prod(node["kernel"].shape[:-1])))
+            elif leaf == "bias" and (name, layer) == ("ssftt", "head"):
+                out[leaf] = common.normal(1e-6)(rng, shape)
+            elif leaf in ("bias", "mean"):
+                out[leaf] = common.zeros(rng, shape)
+            elif leaf in ("scale", "var"):
+                out[leaf] = common.ones(rng, shape)
+            else:
+                init = _RAW_INITS.get(leaf)
+                if init is None and leaf.startswith("pos_embedding_"):
+                    init = common.zeros          # MSViT's branches
+                out[leaf] = init(rng, shape)
+        return out
+
+    return {"params": draw(tree["params"], ()),
+            "batch_stats": draw(tree["batch_stats"], ())}
+
+
+def supervised_state_to_jax(state) -> dict:
+    """The JAX package's ``SupervisedState`` tree (``train/supervised.py:
+    27-36``) of a port supervised state, without the key: params,
+    batch_stats, the Adam state, step, and the EMA teacher's
+    ``{"params", "batch_stats"}`` ({} without one)."""
+    sd = state.model.state_dict()
+    tree = {"params": params_to_jax(sd), "batch_stats": batch_stats_to_jax(sd),
+            "opt_state": {"0": _adam_to_jax(state.opt, state.model)},
+            "step": np.int32(state.step), "ema": {}}
+    if state.ema is not None:
+        esd = state.ema.state_dict()
+        tree["ema"] = {"params": params_to_jax(esd),
+                       "batch_stats": batch_stats_to_jax(esd)}
+    return tree
+
+
+def supervised_state_from_jax(tree, trainer, run_seed: int = 0):
+    """The port's supervised state from a numpy copy of the JAX package's
+    ``SupervisedState`` (or :func:`supervised_state_to_jax`'s tree), built
+    by ``trainer`` (:class:`cmlpl_tpu_torch.train.supervised.
+    SupervisedTrainer`): params, batch stats, the Adam state, step and,
+    when the trainer keeps one, the EMA teacher; the generator is seeded
+    with ``run_seed``."""
+    state = trainer.new_state(tree.params,
+                              getattr(tree, "batch_stats", None) or {},
+                              run_seed)
+    _carry_adam(state.opt, state.model, tree.opt_state[0])
+    state.step = int(np.asarray(tree.step))
+    ema = getattr(tree, "ema", None)
+    if state.ema is not None and ema:
+        sd = state_dict_from_jax(ema["params"],
+                                 batch_stats=ema.get("batch_stats") or None)
+        state.ema.load_state_dict({k: v.to(trainer.device)
+                                   for k, v in sd.items()})
+    return state

@@ -25,10 +25,16 @@ from torch_port_threads import one_torch_thread  # noqa: F401
 
 # (rows, cols, C, w, B, extra pad): the shapes of tests/test_pallas.py —
 # w 20 and 8 over a 30x22x8 scene, odd w 9 with the extra row/col, and a
-# ragged batch of 21 — plus w 20 at the slice's tile of 128.
+# ragged batch of 21 — plus w 20 at the slice's tile of 128; then the
+# comparison zoo's (w, C) pairs at its labeled batch of 45: (13, 5)
+# SSFTT, (7, 103) SSRN, (9, 103) DBDA and FDSSC (odd spans of w*C floats),
+# (8, 30) MSViT, (20, 5) BaseNet1.
 CASES = [(30, 22, 8, 20, 64, 0), (30, 22, 8, 8, 64, 0),
          (16, 16, 4, 9, 21, 1), (16, 16, 4, 8, 21, 0),
-         (64, 48, 16, 20, 128, 0)]
+         (64, 48, 16, 20, 128, 0),
+         (30, 22, 5, 13, 45, 0), (20, 18, 103, 7, 45, 0),
+         (20, 18, 103, 9, 45, 1), (24, 20, 30, 8, 45, 0),
+         (24, 20, 5, 20, 45, 0)]
 
 
 def _scene(rng, rows, cols, ch, w, extra):

@@ -29,7 +29,11 @@ def test_the_scan_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"chip_smoke.py", "cmlpl_tpu_torch/ops/patch_gather.py",
             "cmlpl_tpu_torch/cli/serve.py",
-            "cmlpl_tpu_torch/train/cct.py"} <= names
+            "cmlpl_tpu_torch/train/cct.py",
+            "cmlpl_tpu_torch/cli/train_backbone.py",
+            "cmlpl_tpu_torch/train/supervised.py",
+            "cmlpl_tpu_torch/models/zoo.py",
+            "cmlpl_tpu_torch/models/msvit.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
