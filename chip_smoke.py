@@ -25,11 +25,15 @@ against the CPU, and the 12-seed OA of bf16 ``cli.train``; a 4-epoch
 and one restart; one epoch with each extra objective and with the
 augmentations, and a stacked against an unstacked CMLPL step.  Then the
 comparison zoo: kernel 1 (and kernel 2 once) at every zoo (w, C) at
-B = 512 and 45; three supervised steps of each of the nine ``ZOO`` models
+B = 512 and 45, both kernels at every zoo (w, C)'s edges (the cube's first
+and last windows, B = 1, a ragged last group, a cube based one element
+past an aligned allocation) and each kernel's B = 1 floor; three
+supervised steps of each of the nine ``ZOO`` models
 on the card against the CPU; ``cli.train_backbone`` for each, 100 epochs
 at its defaults; and each model's mean OA against the JAX package's bank
-(``docs/zoo_jax_seeds.json``).  Every phase prints one JSON line; the card's name and power limit, then a ``kernels``
-line (launches on the main path, error, times and bounds) come before the
+(``docs/zoo_jax_seeds.json``).  Every phase prints one JSON line; the
+card's name and power limit, then a ``kernels`` line (launches on the main
+path, error, times, bounds, launch plans and B = 1 floors) come before the
 last line, ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without that line; so it does without CUDA.
 """
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import ctypes
 import io
 import json
 import os
@@ -54,6 +59,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 DATA_ID, N_PC, W, TILE = 1, 60, 20, 512     # PaviaU width
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
+# every kernel of csrc/patch_gather.cu (patch_gather_rows_kernel,
+# patch_gather_groups_kernel) holds this in its name, and no library
+# kernel does
+KERNEL_NEEDLE = "patch_gather_"
+FLOOR_SITE = (13, 5)                        # (w, C) of the B = 1 floor
+FLOOR_LAUNCHES = 100
 TIMING_ROUNDS = 3                           # passes over a map's tiles
 TRAIN_EPOCHS = 20                           # the default schedule
 # card vs CPU, 3 training steps: cuDNN and oneDNN sum the convolutions in
@@ -188,13 +199,15 @@ def profiled(fn, args_list):
     return dev_ms, counts, wall_ms
 
 
-def kernel_device_ms(fn, args_list, needle: str):
+def kernel_device_ms(fn, args_list, needle: str = KERNEL_NEEDLE) -> float:
     """Device ms per launch of the kernels whose name holds ``needle``, from
-    the profiler, or None when the profiler saw no device time."""
+    the profiler; fails when the profiler saw no such kernel."""
     dev_ms, counts, _ = profiled(fn, args_list)
     keys = [k for k in dev_ms if needle in k]
     n = sum(counts[k] for k in keys)
-    return sum(dev_ms[k] for k in keys) / n if n else None
+    require(n > 0, f"the profiler saw no kernel named {needle!r}: "
+            f"{sorted(dev_ms)[:8]}")
+    return sum(dev_ms[k] for k in keys) / n
 
 
 def call_device_ms(fn, args_list):
@@ -265,11 +278,189 @@ def map_tiles(num_pixels: int, device) -> list[torch.Tensor]:
     return list(torch.from_numpy(idx).to(device).split(TILE))
 
 
+class _CUmemLocation(ctypes.Structure):
+    _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+
+class _CUmemAllocationProp(ctypes.Structure):
+    _fields_ = [("type", ctypes.c_int), ("requestedHandleTypes", ctypes.c_int),
+                ("location", _CUmemLocation),
+                ("win32HandleMetaData", ctypes.c_void_p),
+                ("compressionType", ctypes.c_ubyte),
+                ("gpuDirectRDMACapable", ctypes.c_ubyte),
+                ("usage", ctypes.c_ushort),
+                ("reserved", ctypes.c_ubyte * 4)]
+
+
+class _CUmemAccessDesc(ctypes.Structure):
+    _fields_ = [("location", _CUmemLocation), ("flags", ctypes.c_int)]
+
+
+class _DeviceArray:
+    """``__cuda_array_interface__`` of device memory that torch wraps
+    without owning it."""
+
+    def __init__(self, ptr: int, shape, typestr: str):
+        self.__cuda_array_interface__ = {
+            "shape": tuple(shape), "typestr": typestr, "data": (ptr, False),
+            "strides": None, "version": 2}
+
+
+@contextlib.contextmanager
+def fenced(cube: torch.Tensor, at_end: bool):
+    """A copy of ``cube`` on the card in memory that is mapped alone, its
+    neighbours on both sides reserved and unmapped (CUDA's virtual memory
+    API), so that a read outside the mapping fails the launch with an
+    illegal address.  The copy starts at the mapping's first byte, or ends
+    at its last (``at_end``; its base then only element-aligned)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    u64, size_t = ctypes.c_uint64, ctypes.c_size_t
+    sigs = {"cuMemGetAllocationGranularity": (ctypes.POINTER(size_t),
+                                              ctypes.c_void_p, ctypes.c_int),
+            "cuMemAddressReserve": (ctypes.POINTER(u64), size_t, size_t,
+                                    u64, u64),
+            "cuMemCreate": (ctypes.POINTER(u64), size_t, ctypes.c_void_p,
+                            u64),
+            "cuMemMap": (u64, size_t, size_t, u64, u64),
+            "cuMemSetAccess": (u64, size_t, ctypes.c_void_p, size_t),
+            "cuMemUnmap": (u64, size_t), "cuMemRelease": (u64,),
+            "cuMemAddressFree": (u64, size_t)}
+    fns = {}
+    for name, argtypes in sigs.items():
+        fns[name] = getattr(cu, name)
+        fns[name].argtypes, fns[name].restype = argtypes, ctypes.c_int
+
+    def call(name, *args):
+        err = fns[name](*args)
+        require(err == 0, f"{name}: CUresult {err}")
+
+    dev = cube.device.index if cube.device.index is not None else \
+        torch.cuda.current_device()
+    where = _CUmemLocation(1, dev)           # CU_MEM_LOCATION_TYPE_DEVICE
+    prop = _CUmemAllocationProp(type=1, location=where)   # ..._PINNED
+    gran = size_t()
+    call("cuMemGetAllocationGranularity", ctypes.byref(gran),
+         ctypes.byref(prop), 0)
+    g = gran.value
+    nbytes = cube.numel() * cube.element_size()
+    size = -(-nbytes // g) * g
+    va, handle = u64(), u64()
+    call("cuMemAddressReserve", ctypes.byref(va), size + 2 * g, 0, 0, 0)
+    base = va.value + g
+    mapped = created = False
+    try:
+        call("cuMemCreate", ctypes.byref(handle), size, ctypes.byref(prop),
+             0)
+        created = True
+        call("cuMemMap", base, size, 0, handle.value, 0)
+        mapped = True
+        call("cuMemSetAccess", base, size,
+             ctypes.byref(_CUmemAccessDesc(where, 3)), 1)   # read, write
+        lo = base + size - nbytes if at_end else base
+        view = torch.as_tensor(_DeviceArray(
+            lo, cube.shape, "<f4" if cube.element_size() == 4 else "<i2"),
+            device=cube.device).view(cube.dtype)
+        view.copy_(cube)
+        yield view
+    finally:
+        torch.cuda.synchronize()
+        if mapped:
+            call("cuMemUnmap", base, size)
+        if created:
+            call("cuMemRelease", handle.value)
+        call("cuMemAddressFree", va.value, size + 2 * g)
+
+
+def edge_cases(cube, cols: int, w: int):
+    """(ids cases, bases) at the kernel's edges for windows of ``w``.  The
+    cases, each (label, ids, cols): the cube's first and last windows, B =
+    1, and B = G + 1 (a ragged last group, G the plan's at a map tile).
+    The first window begins at the cube's first byte and is taken at out
+    rows that are and are not 16-byte aligned; the last ends at the cube's
+    last byte: start (rows - w, cols' - 1) under the divisor cols' =
+    cube_cols - w + 1.  The bases, each (label, a context that yields the
+    cube): ``cube`` itself, a copy whose base lies one element past an
+    aligned allocation, and copies that start or end at an unmapped
+    neighbour (``fenced``), where a read outside the cube fails."""
+    from cmlpl_tpu_torch.ops.patch_gather import card_sms, gather_plan
+
+    rows_c, cols_c, ch = cube.shape
+    last_cols = cols_c - w + 1
+    dev = cube.device
+    last = (rows_c - w) * last_cols + last_cols - 1
+    first_last = torch.tensor([0, last, 0, 0], dtype=torch.int32, device=dev)
+    group = gather_plan(TILE, w, ch, cube.element_size(),
+                        card_sms(dev)).group
+    g = torch.Generator(device=dev).manual_seed(SEED + 1000 * w + ch)
+    one = torch.randint(0, rows_c * cols, (1,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ragged = torch.cat([first_last[1:2], torch.randint(
+        0, rows_c * last_cols, (group,), generator=g, device=dev,
+        dtype=torch.int32)])
+
+    @contextlib.contextmanager
+    def offset():
+        flat = torch.empty(cube.numel() + 1, dtype=cube.dtype, device=dev)
+        flat[1:] = cube.reshape(-1)
+        yield flat[1:].view(cube.shape)
+
+    cases = [("first and last windows", first_last, last_cols),
+             ("B=1", one, cols), (f"B=G+1={group + 1}", ragged, last_cols)]
+    bases = [("aligned base", lambda: contextlib.nullcontext(cube)),
+             ("base + 1 element", offset),
+             ("fenced below", lambda: fenced(cube, at_end=False)),
+             ("fenced above", lambda: fenced(cube, at_end=True))]
+    return cases, bases
+
+
+def check_edges(name: str, wrapper, cube, cols: int, w: int,
+                phase: str) -> float:
+    """``wrapper`` bitwise equal to the plain gather at every edge case and
+    base, and so is the groups path at 1 and 2 patches a block and every
+    rows a warp that fits (a small batch takes the rows path by plan);
+    returns the largest absolute difference (0)."""
+    from cmlpl_tpu_torch.data.patches import gather_patches
+    from cmlpl_tpu_torch.ops.patch_gather import (MAX_BLOCK_THREADS,
+                                                  ROWS_PER_WARP, card_sms,
+                                                  groups_plan, launch_plan)
+
+    max_err = 0.0
+    cases, bases = edge_cases(cube, cols, w)
+    for base, make in bases:
+        with make() as cb:
+            for case, ids, c in cases:
+                want = gather_patches(cb, ids, cols=c, w=w)
+                runs = {"plan": wrapper(cb, ids, cols=c, w=w)}
+                for group in (1, 2):
+                    for per_warp in ROWS_PER_WARP:
+                        if 32 * -(-group * w // per_warp) > MAX_BLOCK_THREADS:
+                            continue
+                        plan = groups_plan(ids.shape[0], w, group, per_warp,
+                                           card_sms(cb.device))
+                        runs[f"groups G={group} R={per_warp}"] = launch_plan(
+                            cb, ids, c, w, plan)[0]
+                torch.cuda.synchronize()
+                label = f"{case}, {base} w={w} C={cube.shape[-1]}"
+                for how, got in runs.items():
+                    require(got.shape == want.shape
+                            and got.dtype == cube.dtype,
+                            f"{name} {label} {how}: shape/dtype")
+                    require(torch.equal(bits(got), bits(want)),
+                            f"{name} {label} {how}: not bitwise equal to the "
+                            "plain gather")
+                    max_err = max(max_err, float((got.float() - want.float())
+                                                 .abs().max()))
+                emit({"phase": phase, "kernel": name, "case": label,
+                      "launches": sorted(runs), "bitwise_equal": True})
+    return max_err
+
+
 def phase_kernels(scene, device):
     """Both kernels vs the plain gather, bitwise, at the serving shape and
-    at odd w 9, w 8 and a ragged batch of 21 with ids off the scene; then
-    their times over one map's tiles beside the plain version's, one
-    PyTorch library call's and the bound."""
+    at odd w 9, w 8 and a ragged batch of 21 with ids off the scene, and at
+    the serving shape's edges (``edge_cases``); then their times over one
+    map's tiles beside the plain version's, one PyTorch library call's and
+    the bound."""
     from cmlpl_tpu_torch.data.patches import gather_patches
     from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                                   gather_patches_f32)
@@ -318,6 +509,8 @@ def phase_kernels(scene, device):
                   "bitwise_equal": True})
 
         cube = scene.padded_pca.to(dtype).contiguous()
+        max_err = max(max_err, check_edges(name, wrapper, cube, cols, W,
+                                           "kernel_vs_plain"))
         times = gather_times(wrapper, cube, tiles, cols)
         report[name] = {"max_abs_err": max_err, "ms": times["ms"],
                         "kernel_ms": times["ms"], **times,
@@ -332,6 +525,7 @@ def gather_times(wrapper, cube, id_list, cols: int,
     ``id_list`` (one launch each, windows of ``w``) beside the plain
     gather's, one PyTorch library call's and the byte bound."""
     from cmlpl_tpu_torch.data.patches import clamped_starts, gather_patches
+    from cmlpl_tpu_torch.ops.patch_gather import card_sms, gather_plan
 
     elt = cube.element_size()
     rc = [clamped_starts(t, cols, cube.shape[0], cube.shape[1], w)
@@ -352,7 +546,7 @@ def gather_times(wrapper, cube, id_list, cols: int,
     library_ms = cuda_ms(library, rc, rounds)
     # the profiler misses a window's first launch: give it several
     device_ms = kernel_device_ms(lambda t: wrapper(cube, t, cols=cols, w=w),
-                                 args * rounds, "patch_gather_kernel")
+                                 args * rounds)
     library_device_ms = call_device_ms(library, rc * rounds)
     # bytes the function must move per launch: each output written once,
     # the ids and each cube pixel that its windows touch read once
@@ -367,10 +561,12 @@ def gather_times(wrapper, cube, id_list, cols: int,
     batch = id_list[0].shape[0]
     out_bytes = batch * w * w * cube.shape[-1] * elt
     in_bytes = touched / len(id_list) * cube.shape[-1] * elt + batch * 4
+    plan = gather_plan(batch, w, cube.shape[-1], elt, card_sms(cube.device))
     return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_device_ms,
             "bound_ms": (out_bytes + in_bytes) / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "bytes_per_launch": out_bytes + in_bytes}
+            "bound_by": "bytes", "bytes_per_launch": out_bytes + in_bytes,
+            "plan": plan._asdict()}
 
 
 class ResponseLog(io.StringIO):
@@ -1267,8 +1463,11 @@ def phase_zoo_kernels(device):
     at PaviaU width (610x340, cubes of random values, as the gather reads
     them): a map tile (B = 512; tile 123 and the ragged last) and a
     training step (B = 45, the labeled split); kernel 2 the same at (9,
-    103).  Then each site's times over a map's 406 tiles and 100 steps,
-    as ``phase_kernels`` takes them."""
+    103); both kernels at every zoo (w, C)'s edges (``edge_cases``).  Then
+    each site's times over a map's 406 tiles and 100 steps, as
+    ``phase_kernels`` takes them, and each kernel's floor: its device time
+    at B = 1 and (w, C) = FLOOR_SITE.  Returns (the sites' report, the
+    floors)."""
     from cmlpl_tpu_torch.data.patches import gather_patches, patch_pad_width
     from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                                   gather_patches_f32)
@@ -1283,10 +1482,24 @@ def phase_zoo_kernels(device):
     for name, shape in zoo_shapes().items():
         sites.setdefault(shape, []).append(name)
     report = {"patch_gather_f32": {}, "patch_gather_bf16": {}}
+    floors = {}
     for (w, c), models in sites.items():
         hw = patch_pad_width(w)
         cube = torch.randn(rows + 2 * hw, cols + 2 * hw, c, generator=g,
                            device=device)
+        for kname, wrapper, dtype in (
+                ("patch_gather_f32", gather_patches_f32, torch.float32),
+                ("patch_gather_bf16", gather_patches_bf16, torch.bfloat16)):
+            cb = cube.to(dtype)
+            check_edges(kname, wrapper, cb, cols, w, "zoo_kernels")
+            if (w, c) == FLOOR_SITE:
+                one = [(t[:1],) for t in steps[:FLOOR_LAUNCHES]]
+                floors[kname] = kernel_device_ms(
+                    lambda t, wr=wrapper, cb=cb, w=w: wr(cb, t, cols=cols,
+                                                         w=w), one)
+                emit({"phase": "zoo_kernels", "kernel": kname,
+                      "floor_device_ms": floors[kname],
+                      "site": f"B=1 w={w} C={c}"})
         kernels = [("patch_gather_f32", gather_patches_f32, cube)]
         if (w, c) == (9, 103):
             kernels.append(("patch_gather_bf16", gather_patches_bf16,
@@ -1311,7 +1524,8 @@ def phase_zoo_kernels(device):
                 emit({"phase": "zoo_kernels", "kernel": kname,
                       "case": label, "bitwise_equal": True,
                       **report[kname][label]})
-    return report
+    require(set(floors) == set(report), f"floors of {sorted(floors)}")
+    return report, floors
 
 
 def phase_zoo_card_vs_cpu(cube, gt, device, flags_at_start) -> dict:
@@ -1568,9 +1782,9 @@ def phase_zoo_ab(ab, scene_npz) -> None:
 
 
 def run_zoo(cube, gt, device, flags_at_start, counter_fn):
-    """The slice-5 phases; returns (kernel report at the zoo's sites, kernel
-    1's training launches by model)."""
-    kernels = phase_zoo_kernels(device)
+    """The slice-5 phases; returns (kernel report at the zoo's sites, each
+    kernel's B = 1 floor, kernel 1's training launches by model)."""
+    kernels, floors = phase_zoo_kernels(device)
     scenes = phase_zoo_card_vs_cpu(cube, gt, device, flags_at_start)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_zoo_train(tmp, scenes, counter_fn)
@@ -1578,7 +1792,7 @@ def run_zoo(cube, gt, device, flags_at_start, counter_fn):
         phase_zoo_ab(*ab_inputs(tmp))
     require(tf32_flags() == flags_at_start,
             f"TF32 left at {tf32_flags()}, found at {flags_at_start}")
-    return kernels, launches
+    return kernels, floors, launches
 
 
 def main() -> int:
@@ -1847,8 +2061,8 @@ def main() -> int:
     # 6. the comparison zoo (slice 5): kernel 1 at the zoo's shapes, each
     # model's steps on the card vs the CPU, cli.train_backbone for each,
     # and the OA A/B against the JAX package's bank
-    zoo_kernels, zoo_launches = run_zoo(cube, gt, device, flags_at_start,
-                                        counter_fn)
+    zoo_kernels, zoo_floors, zoo_launches = run_zoo(
+        cube, gt, device, flags_at_start, counter_fn)
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"],
                 "patch_gather_bf16":
@@ -1889,6 +2103,9 @@ def main() -> int:
                         "source": "cmlpl_tpu_torch/csrc/patch_gather.cu",
                         "replaces": replaces[name],
                         "launches": launches[name], **rep,
+                        "floor_device_ms": zoo_floors[name],
+                        "floor_site": f"B=1 w={FLOOR_SITE[0]} "
+                        f"C={FLOOR_SITE[1]}",
                         "launches_train": launches_train[name],
                         "train_shapes": train_gather[name]
                         | zoo_kernels[name]})

@@ -27,9 +27,10 @@ _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (cube, idx, out, batch, cube_rows, cube_cols, channels, cols, w, stream)
-# -> cudaError_t
-_GATHER = ((_P, _P, _P, ctypes.c_int64, _I, _I, _I, _I, _I, _P), _I)
+# (cube, idx, out, batch, cube_rows, cube_cols, channels, cols, w, then the
+# plan: path, group, rows_per_warp, grid; stream) -> cudaError_t
+_GATHER = ((_P, _P, _P, ctypes.c_int64, _I, _I, _I, _I, _I,
+            _I, _I, _I, _I, _P), _I)
 #: C signature of every entry point: (argtypes, restype)
 SIGNATURES = {"cmlpl_patch_gather_f32": _GATHER,
               "cmlpl_patch_gather_bf16": _GATHER}

@@ -15,9 +15,13 @@ Kernel 1, :func:`gather_patches_f32`, replaces the Pallas TPU kernel
 :func:`gather_patches_bf16`, replaces ``gather_patches_pallas_shifted``
 (bf16) and reads a plain bf16 cube (``padded.to(torch.bfloat16)``) where
 the TPU kernel needed eight column-shifted copies.  Both are one templated
-CUDA kernel in ``csrc/patch_gather.cu``; its header says what bounds it
-(bytes: the (B, w, w, C) output is written once, the overlapping window
-reads mostly hit L2) and what its design does about it.
+CUDA source, ``csrc/patch_gather.cu``, with two paths that
+:func:`gather_plan` chooses by shape: a block per patch row for wide rows,
+and for narrow ones blocks of whole patches with a warp per patch row,
+aligned 16-byte reads and writes whatever the pixel stride.  Its header
+says what bounds it (bytes: the (B, w, w, C) output is written once, the
+overlapping window reads mostly hit L2; at the callers' sizes, latency)
+and what its design does about it.
 
 A wrapper given CPU tensors runs the plain version,
 :func:`cmlpl_tpu_torch.data.patches.gather_patches`.  Given CUDA
@@ -26,6 +30,9 @@ version.  ``<wrapper>.launches`` counts the kernel launches.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,25 +58,147 @@ def _check(cube: torch.Tensor, idx: torch.Tensor, cols: int, w: int,
         raise ValueError(f"cols must be positive, got {cols}")
 
 
-def _launch(fn_name: str, cube: torch.Tensor, idx: torch.Tensor, cols: int,
-            w: int) -> torch.Tensor:
+#: the kernel's paths (the C entry points' ``path`` argument): a block per
+#: patch row, or blocks of G whole patches with R patch rows a warp
+PATH_ROWS, PATH_GROUPS = 0, 1
+#: the rows path: one block of this many threads per (patch, patch row)
+ROW_THREADS = 128
+#: rows of at least this many bytes, with pixels of a multiple of 8 bytes,
+#: take the rows path: a block per row then moves kilobytes, mostly in 16-
+#: and 8-byte copies
+ROWS_MIN_BYTES = 2048
+#: threads of a block at most, and of an SM
+MAX_BLOCK_THREADS = 1024
+MAX_THREADS_PER_SM = 2048
+
+
+class GatherPlan(NamedTuple):
+    """A launch of the patch-gather kernel: its path, whole patches per
+    block (the groups path's G), patch rows per warp (its R) and blocks.
+    The C launcher derives the threads of a block from these and ``w``
+    (:func:`block_threads`); the rows path launches a block per patch row
+    whatever ``grid`` says."""
+    path: int
+    group: int
+    rows_per_warp: int
+    grid: int
+
+
+def block_threads(plan: GatherPlan, w: int) -> int:
+    """Threads of a block of ``plan`` for windows of ``w``, as the C
+    launcher derives them: ``ROW_THREADS`` on the rows path, (32,
+    ceil(G w / R)) on the groups path."""
+    if plan.path == PATH_ROWS:
+        return ROW_THREADS
+    return 32 * -(-plan.group * w // plan.rows_per_warp)
+
+
+#: patch rows a warp of the groups path takes: its loads of them all are
+#: in flight at once
+ROWS_PER_WARP = (1, 2, 4)
+
+
+def groups_plan(batch: int, w: int, group: int, rows_per_warp: int,
+                sms: int) -> GatherPlan:
+    """The groups path at ``group`` patches a block and ``rows_per_warp``
+    rows a warp: a grid of the groups, at most as many blocks as the card
+    holds at once."""
+    if rows_per_warp not in ROWS_PER_WARP:
+        raise ValueError(f"rows_per_warp {rows_per_warp} not in "
+                         f"{ROWS_PER_WARP}")
+    plan = GatherPlan(PATH_GROUPS, group, rows_per_warp, 1)
+    threads = block_threads(plan, w)
+    if threads > MAX_BLOCK_THREADS:
+        raise ValueError(f"{group} patches of {w} rows at {rows_per_warp} a "
+                         f"warp need {threads} threads")
+    return plan._replace(grid=min(-(-batch // group), sms * max(
+        1, MAX_THREADS_PER_SM // threads)))
+
+
+#: below this many patch rows a launch is latency alone: rows of at most
+#: two rounds of a warp's lanes take the rows path there, whose chain from
+#: launch to write is the shortest, and wider rows take one row a warp
+SMALL_ROWS = 2048
+
+
+def gather_plan(batch: int, w: int, channels: int, elt_bytes: int,
+                sms: int) -> GatherPlan:
+    """The launch of a (batch, w, w, channels) gather of ``elt_bytes``
+    elements on a card of ``sms`` SMs.
+
+    Wide rows whose pixels are a multiple of 8 bytes take the rows path
+    (a block per patch row), and so do a window of more than 32 rows and
+    a batch of fewer than ``SMALL_ROWS`` rows of at most 62 out chunks.
+    The rest take the groups path: a warp takes 4 rows where a row's out
+    chunks fit one round of its lanes (31 chunks of 16 bytes), else 2, and
+    1 in a batch of fewer than ``SMALL_ROWS`` rows; a block takes 2 whole
+    patches, 4 where a row needs more than two rounds, 1 in a small batch
+    (and never more than 1024 threads hold).  Chosen from the device times
+    of every plan at every launch site of ``chip_smoke.py`` on an H100
+    (``PERF.md`` §6)."""
+    if min(batch, w, channels, elt_bytes, sms) < 1:
+        raise ValueError(f"no plan for batch {batch}, w {w}, channels "
+                         f"{channels}, elements of {elt_bytes} bytes on "
+                         f"{sms} SMs")
+    row = w * channels * elt_bytes
+    chunks = row // 16 + 2            # out chunks a row covers, at most
+    small = batch * w < SMALL_ROWS
+    if (w > 32 or (row >= ROWS_MIN_BYTES and channels * elt_bytes % 8 == 0)
+            or (small and chunks <= 62)):
+        return GatherPlan(PATH_ROWS, 1, 1, batch * w)
+    per_warp = 1 if small else 4 if chunks <= 31 else 2
+    group = 1 if small else min(4 if chunks > 62 else 2,
+                                max(1, 32 * per_warp // w))
+    return groups_plan(batch, w, group, per_warp, sms)
+
+
+def card_sms(device: torch.device) -> int:
+    """The SM count of ``device``'s card."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _sms(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: the C entry point of each cube dtype
+_ENTRY = {torch.float32: "cmlpl_patch_gather_f32",
+          torch.bfloat16: "cmlpl_patch_gather_bf16"}
+
+
+def launch_plan(cube: torch.Tensor, idx: torch.Tensor, cols: int, w: int,
+                plan: GatherPlan | None = None) -> tuple[torch.Tensor, int]:
+    """The kernel of ``cube``'s dtype on CUDA tensors, by ``plan``
+    (:func:`gather_plan`'s by default): its output and the launches made
+    (none for an empty batch).  The wrappers count those launches; a call
+    here with another plan, to hold or time one path, counts none."""
     if not cube.is_contiguous() or not idx.is_contiguous():
         raise ValueError("cube and idx must be contiguous")
     b = idx.shape[0]
-    if max(*cube.shape, b * w) >= 2 ** 31:
+    if max(*cube.shape, b * w, w * w * cube.shape[-1]) >= 2 ** 31:
         raise ValueError(f"cube {tuple(cube.shape)} or {b} patches of {w} "
                          "rows exceed the kernel's 32-bit dims and grid")
     out = torch.empty((b, w, w, cube.shape[-1]), dtype=cube.dtype,
                       device=cube.device)
+    if b == 0:
+        return out, 0
+    if plan is None:
+        plan = gather_plan(b, w, cube.shape[-1], cube.element_size(),
+                           card_sms(cube.device))
+    fn_name = _ENTRY[cube.dtype]
     fn = getattr(_build.library(), fn_name)
     with torch.cuda.device(cube.device):
         stream = torch.cuda.current_stream(cube.device).cuda_stream
         err = fn(cube.data_ptr(), idx.data_ptr(), out.data_ptr(), b,
                  cube.shape[0], cube.shape[1], cube.shape[2], cols, w,
-                 stream)
+                 *plan, stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError_t {err}")
-    return out
+        raise RuntimeError(f"{fn_name} launch failed: cudaError_t {err} "
+                           f"({plan})")
+    return out, 1
 
 
 def gather_patches_f32(padded: torch.Tensor, idx: torch.Tensor, *,
@@ -82,8 +211,8 @@ def gather_patches_f32(padded: torch.Tensor, idx: torch.Tensor, *,
         return gather_patches_plain(padded, idx, cols=cols, w=w)
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device {padded.device}")
-    out = _launch("cmlpl_patch_gather_f32", padded, idx, cols, w)
-    gather_patches_f32.launches += 1
+    out, launched = launch_plan(padded, idx, cols, w)
+    gather_patches_f32.launches += launched
     return out
 
 
@@ -99,8 +228,8 @@ def gather_patches_bf16(cube: torch.Tensor, idx: torch.Tensor, *,
         return gather_patches_plain(cube, idx, cols=cols, w=w)
     if cube.device.type != "cuda":
         raise ValueError(f"unsupported device {cube.device}")
-    out = _launch("cmlpl_patch_gather_bf16", cube, idx, cols, w)
-    gather_patches_bf16.launches += 1
+    out, launched = launch_plan(cube, idx, cols, w)
+    gather_patches_bf16.launches += launched
     return out
 
 
