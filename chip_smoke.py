@@ -24,10 +24,21 @@ against the CPU, and the 12-seed OA of bf16 ``cli.train``; a 4-epoch
 ``cli.train`` with a checkpoint an epoch, a fault injected after epoch 2
 and one restart; one epoch with each extra objective and with the
 augmentations, and a stacked against an unstacked CMLPL step.  Then the
+rest of the single-card surface: ``cli.sample_generation`` of the
+synthetic PaviaU scene against the port's prep; ``cli.train`` on its
+splits for 2 epochs with ``--profile_dir`` (the trace names the gather
+kernel) and ``--checkpoint_dir``; ``predict --checkpoint_dir`` of net B
+(bitwise the map of ``--weights``) and net E, and a ``serve`` request
+from the checkpoint; ``XP.npy`` of the 64x48 scene in chunks against the
+plain gather; ``cli.train --num_iters 4 --fused_iters`` beside the serial
+loop and a bf16 fused epoch (times, idle shares, each seed's OA), and 3
+fused steps of 4 seeds against 3 serial steps of each, for CMLPL, CPS and
+CCT.  Then the
 comparison zoo: kernel 1 (and kernel 2 once) at every zoo (w, C) at
 B = 512 and 45, both kernels at every zoo (w, C)'s edges (the cube's first
 and last windows, B = 1, a ragged last group, a cube based one element
-past an aligned allocation) and each kernel's B = 1 floor; three
+past an aligned allocation) and each kernel's B = 1 floor, with its
+bound and the library call's time; three
 supervised steps of each of the nine ``ZOO`` models
 on the card against the CPU; ``cli.train_backbone`` for each, 100 epochs
 at its defaults; and each model's mean OA against the JAX package's bank
@@ -937,10 +948,14 @@ def profile_window(window) -> dict:
     # kernels whose names say they take bf16 operands (cuBLAS/cuDNN
     # tensor-core GEMMs and convolutions name their input type)
     bf16_ms = sum(v for k, v in dev_ms.items() if "bf16" in k.lower())
+    # a device-bound window: the profiler lengthens kernels, so its busy
+    # time can pass the unprofiled wall; the profiled window's own share
+    # is then the one to read
     return {"steps": 20, "wall_ms_unprofiled": window_ms,
             "wall_ms_profiled": prof_wall_ms, "device_busy_ms": busy_ms,
             "device_busy_ms_per_step": busy_ms / 20,
             "device_idle_share": 1 - busy_ms / window_ms,
+            "device_idle_share_profiled": 1 - busy_ms / prof_wall_ms,
             "bf16_named_kernels_ms": bf16_ms,
             "top_device_ops_ms": [{"name": k[:110], "ms": v,
                                    "calls": calls[k]} for k, v in top]}
@@ -1466,8 +1481,8 @@ def phase_zoo_kernels(device):
     103); both kernels at every zoo (w, C)'s edges (``edge_cases``).  Then
     each site's times over a map's 406 tiles and 100 steps, as
     ``phase_kernels`` takes them, and each kernel's floor: its device time
-    at B = 1 and (w, C) = FLOOR_SITE.  Returns (the sites' report, the
-    floors)."""
+    at B = 1 and (w, C) = FLOOR_SITE, with its bound and the library
+    call's.  Returns (the sites' report, the floors' times)."""
     from cmlpl_tpu_torch.data.patches import gather_patches, patch_pad_width
     from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                                   gather_patches_f32)
@@ -1493,13 +1508,12 @@ def phase_zoo_kernels(device):
             cb = cube.to(dtype)
             check_edges(kname, wrapper, cb, cols, w, "zoo_kernels")
             if (w, c) == FLOOR_SITE:
-                one = [(t[:1],) for t in steps[:FLOOR_LAUNCHES]]
-                floors[kname] = kernel_device_ms(
-                    lambda t, wr=wrapper, cb=cb, w=w: wr(cb, t, cols=cols,
-                                                         w=w), one)
+                # the B = 1 floor beside its bound and the library call
+                floors[kname] = gather_times(
+                    wrapper, cb, [t[:1] for t in steps[:FLOOR_LAUNCHES]],
+                    cols, w=w)
                 emit({"phase": "zoo_kernels", "kernel": kname,
-                      "floor_device_ms": floors[kname],
-                      "site": f"B=1 w={w} C={c}"})
+                      "floor": floors[kname], "site": f"B=1 w={w} C={c}"})
         kernels = [("patch_gather_f32", gather_patches_f32, cube)]
         if (w, c) == (9, 103):
             kernels.append(("patch_gather_bf16", gather_patches_bf16,
@@ -1795,6 +1809,427 @@ def run_zoo(cube, gt, device, flags_at_start, counter_fn):
     return kernels, floors, launches
 
 
+# ---------------------------------------------------------------------------
+# slice 7: data prep, serving from a checkpoint, profiling, fused seeds
+# ---------------------------------------------------------------------------
+
+def predict_map(argv, counter_fn):
+    """``cli.predict`` on ``argv`` with the gather counts reset: (its map,
+    the f32 and bf16 launches it made)."""
+    from cmlpl_tpu_torch.cli import predict
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    pred, _, _ = run_cli(predict.main, argv, counter_fn)
+    return pred, counter_fn()
+
+
+def phase_prep_train_serve(tmp, cube, gt, scene, counter_fn, device):
+    """``cli.sample_generation`` of the synthetic PaviaU scene (its five
+    files equal to the port's prep in process); ``cli.train`` on those
+    splits for 2 epochs with ``--checkpoint_dir``, ``--weights_out`` and
+    ``--profile_dir``, in a process of its own (the trace names the gather
+    kernel); ``predict
+    --checkpoint_dir`` of net B bitwise the map of ``--weights``, of net E
+    that of ``ScenePredictor`` on net E's params, 406 kernel-1 launches a
+    map; one ``serve --checkpoint_dir`` request; and ``XP.npy`` of the
+    64x48 scene, written in more than one chunk, equal to the plain
+    gather's patches.  Returns the kernel-1 launches (training, a map)."""
+    from cmlpl_tpu_torch.cli import sample_generation, serve
+    from cmlpl_tpu_torch.cli._common import logits_fn
+    from cmlpl_tpu_torch.data.patches import gather_patches
+    from cmlpl_tpu_torch.data.prep import feature_normalize, prepare_scene
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.eval.inference import ScenePredictor
+    from cmlpl_tpu_torch.models.basenet import BaseNet2
+    from cmlpl_tpu_torch.utils.checkpoint import load_net_params
+    from cmlpl_tpu_torch.weights import state_dict_from_jax
+
+    os.makedirs(tmp, exist_ok=True)
+    npz = os.path.join(tmp, "paviau.npz")
+    np.savez(npz, cube=cube, gt=gt)
+    t0 = time.perf_counter()
+    _, lines, _ = run_cli(sample_generation.main, [
+        "--dataID", str(DATA_ID), "--scene_npz", npz, "--data_root",
+        os.path.join(tmp, "prep")], counter_fn)
+    prep_s = time.perf_counter() - t0
+    splits_dir = os.path.join(tmp, "prep", "PaviaU")
+    flat = cube.reshape(-1, cube.shape[-1])
+    y = gt.reshape(-1)
+    splits = generate_splits(y, num_label=5)
+    want = {"X.npy": feature_normalize(flat, 1).astype(np.float32),
+            "Y.npy": y, "train_array.npy": splits.train,
+            "test_array.npy": splits.test,
+            "unlabel_array.npy": splits.unlabeled}
+    for name, arr in want.items():
+        got = np.load(os.path.join(splits_dir, name))
+        require(got.dtype == arr.dtype and np.array_equal(got, arr),
+                f"sample_generation {name} differs from the port's prep")
+
+    # 2 epochs on those splits, traced, with a checkpoint and the weights,
+    # in a process of its own as a user runs it (see slice7_in_child)
+    ck = os.path.join(tmp, "ck")
+    prof = os.path.join(tmp, "prof")
+    acc, rep = traced_train_run(tmp, [
+        "--splits_dir", splits_dir, "--scene_npz", npz, "--checkpoint_dir",
+        ck, "--profile_dir", prof])
+    require(rep["launches_training"] == {"gather_patches_f32": 1,
+                                         "gather_patches_bf16": 0},
+            f"profiled run: training launches {rep['launches_training']}")
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)
+              if f.endswith(".json")]
+    require(len(traces) == 1, f"traces {os.listdir(prof)}")
+    with open(traces[0], "rb") as f:
+        trace_bytes = f.read()
+    require(KERNEL_NEEDLE.encode() in trace_bytes,
+            "the trace names no patch-gather kernel")
+    require(b"aten::convolution" in trace_bytes, "the trace has no conv")
+
+    # maps from the checkpoint against the weights and net E's params
+    common = ["--dataID", str(DATA_ID), "--n_PC", str(N_PC), "--w", str(W),
+              "--val_batch_size", str(TILE), "--data_root", tmp]
+    weights = os.path.join(tmp, "prep.npz")
+    by_weights, n_w = predict_map(common + ["--weights", weights, "--out",
+                                            os.path.join(tmp, "w.svg")],
+                                  counter_fn)
+    maps, launches = {}, {}
+    for net in ("b", "e"):
+        maps[net], launches[net] = predict_map(common + [
+            "--checkpoint_dir", ck, "--net", net, "--out",
+            os.path.join(tmp, f"{net}.svg")], counter_fn)
+    require(n_w == launches["b"] == launches["e"] == (406, 0),
+            f"predict launches {n_w}, {launches}")
+    require(np.array_equal(maps["b"], by_weights),
+            "predict --checkpoint_dir --net b != predict --weights")
+    model = BaseNet2(num_features=cube.shape[-1], num_classes=9, n_pc=N_PC,
+                     patch_size=W)
+    model.load_state_dict(state_dict_from_jax(load_net_params(ck, "e")))
+    model = model.to(device).eval()
+    net_e = ScenePredictor(logits_fn(model), patch_size=W, cols=scene.cols,
+                           tile=TILE, gather="pallas")(scene)
+    require(np.array_equal(maps["e"], net_e),
+            "predict --checkpoint_dir --net e != net E's ScenePredictor map")
+
+    stdout = io.StringIO()
+    scene_npy = os.path.join(tmp, "paviau.npy")
+    np.save(scene_npy, cube)
+    serve.main(common + ["--checkpoint_dir", ck, "--no_warmup"],
+               stdin=io.StringIO(json.dumps({
+                   "id": "ckpt", "cube": scene_npy,
+                   "out": os.path.join(tmp, "served.npy")}) + "\n"),
+               stdout=stdout)
+    response = json.loads(stdout.getvalue().splitlines()[-1])
+    require("error" not in response, f"serve error {response}")
+    require(np.array_equal(np.load(os.path.join(tmp, "served.npy")),
+                           maps["b"]), "served map != predict's net B map")
+
+    # XP.npy of the 64x48 scene, in chunks, against the plain gather
+    _, lines, _ = run_cli(sample_generation.main, [
+        "--dataID", "0", "--n_PC", str(N_PC), "--w", str(W), "--data_root",
+        os.path.join(tmp, "xp"), "--materialize_patches"], counter_fn)
+    chunks = int(re.search(r"in (\d+) chunks", "\n".join(lines)).group(1))
+    require(chunks > 1, f"XP.npy in {chunks} chunk")
+    xp = np.load(os.path.join(tmp, "xp", "Synthetic", "XP.npy"))
+    small = prepare_scene(0, patch_size=W, n_pc=N_PC, device=device)
+    ids = torch.arange(small.num_pixels, dtype=torch.int32, device=device)
+    plain = gather_patches(small.padded_pca, ids, cols=small.cols,
+                           w=W).permute(0, 3, 1, 2).cpu().numpy()
+    require(xp.shape == plain.shape and np.array_equal(xp, plain),
+            "XP.npy != the plain gather's NCHW patches")
+    emit({"phase": "prep_train_serve", "sample_generation_s": prep_s,
+          "files_equal_port_prep": sorted(want),
+          "train": {k: rep[k] for k in ("train_s", "ms_per_step",
+                                        "launches_training",
+                                        "launches_with_maps")},
+          "accuracy": acc, "trace_mb": len(trace_bytes) / 2 ** 20,
+          "trace_names_the_gather_kernel": True,
+          "predict_launches": {"weights": n_w, **launches},
+          "checkpoint_map_equals_weights_map": True,
+          "net_e_map_equals_scene_predictor": True,
+          "serve_latency_s": response["latency_s"],
+          "xp_shape": list(xp.shape), "xp_chunks": chunks,
+          "xp_equals_plain_gather": True,
+          "note": "profiled run: its train_s includes the profiler"})
+    return {"train": rep["launches_training"]["gather_patches_f32"],
+            "map": launches["b"][0]}
+
+
+SLICE7 = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+print(json.dumps(cs.run_slice7(sys.argv[2])), flush=True)
+"""
+
+
+def run_slice7(tmp) -> dict:
+    """The slice-7 phases on the synthetic PaviaU scene; returns their
+    launches and the fused pool's kernel report."""
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
+                                                  gather_patches_f32)
+
+    def counter_fn():
+        return (gather_patches_f32.launches, gather_patches_bf16.launches)
+
+    device = torch.device("cuda")
+    cube, gt = synthetic_scene(DATA_ID)
+    tscene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                           n_pc=N_PC, device=device)
+    prep = phase_prep_train_serve(os.path.join(tmp, "prep"), cube, gt,
+                                  tscene, counter_fn, device)
+    fused = phase_fused(os.path.join(tmp, "fused"), tscene, counter_fn,
+                        device)
+    return {"prep": prep, "fused": fused}
+
+
+def slice7_in_child(tmp) -> dict:
+    """:func:`run_slice7` in a new process (the kernels built here), its
+    phase lines printed here.  Processes of their own, this one and the
+    traced run's: on the H100, torch.profiler in a process that has taken
+    large traces loses the kernel records of later ones, the first few
+    and then all (seen in this script's runs: a 2-epoch ``--profile_dir``
+    run lost its pool gather after the profiled windows before it, and
+    the kernel timings after that run saw no kernel at all)."""
+    torch.cuda.empty_cache()    # this process's cached blocks, for it
+    out = subprocess.run([sys.executable, "-c", SLICE7, ROOT, tmp],
+                         capture_output=True, text=True, timeout=1200)
+    result = [ln for ln in out.stdout.splitlines()
+              if ln.startswith('{"prep": ')]
+    for line in out.stdout.splitlines():
+        if line.startswith("{") and line not in result:
+            print(line, flush=True)
+    require(out.returncode == 0 and len(result) == 1,
+            f"the slice-7 phases failed: {out.stderr[-4000:]}")
+    return json.loads(result[0])
+
+
+TRACED_RUN = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from cmlpl_tpu_torch.cli import train
+from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
+                                              gather_patches_f32)
+(acc_b, acc_e), rep = cs.train_cli_run(
+    train.main, sys.argv[2], "prep",
+    lambda: (gather_patches_f32.launches, gather_patches_bf16.launches),
+    ("net B", "net E"), extra=sys.argv[3:], epochs=2)
+print(json.dumps({"accuracy": {"net_b": cs.accuracy(acc_b),
+                               "net_e": cs.accuracy(acc_e)}, "report": rep}))
+"""
+
+
+def traced_train_run(tmp, extra):
+    """``train_cli_run`` of ``cli.train`` for 2 epochs with ``extra`` in a
+    new process; returns (its accuracy, its report)."""
+    out = subprocess.run([sys.executable, "-c", TRACED_RUN, ROOT, tmp,
+                          *extra], capture_output=True, text=True,
+                         timeout=600)
+    result = [ln for ln in out.stdout.splitlines()
+              if ln.startswith('{"accuracy": ')]
+    require(out.returncode == 0 and len(result) == 1,
+            f"traced cli.train failed: {out.stderr[-3000:]}")
+    last = json.loads(result[0])
+    return last["accuracy"], last["report"]
+
+
+def seed_schedule(labels, seeds: int, steps: int):
+    """(S, 1, steps, 128) ids and labels: seed i takes the i-th epoch of
+    the default schedule, as the fused run draws them iter-major."""
+    li, ly, ui = default_schedule(labels, seeds)
+    return tuple(a[:, None, :steps] for a in (li, ly, ui))
+
+
+def fused_vs_serial_steps(trainer, tscene, seeds: int, steps: int):
+    """``steps`` steps of ``seeds`` seeds from ``init_state((SEED, i))``,
+    fused and one seed at a time: per seed (fused metrics, serial
+    metrics, fused step-1 gradients, serial step-1 gradients, fused
+    params, serial params, serial gradient RMS)."""
+    li, ly, ui = seed_schedule(tscene.labels, seeds, steps)
+    states = [trainer.init_state((SEED, i)) for i in range(seeds)]
+    ms = trainer.stack_states(states)
+    names = list(ms.params)
+    ms, m1 = trainer._run(ms, tscene, li[:, :, :1], ly[:, :, :1],
+                          ui[:, :, :1], [1])
+    fused_grads = [[ms.params[n].grad[i].cpu().clone() for n in names]
+                   for i in range(seeds)]
+    ms, m2 = trainer._run(ms, tscene, li[:, :, 1:], ly[:, :, 1:],
+                          ui[:, :, 1:], [1], first_batch=1)
+    fused = trainer.unstack(ms)
+    out = []
+    for i in range(seeds):
+        st = trainer.init_state((SEED, i))
+        st, s1 = trainer.train_epoch(st, tscene, li[i, 0, :1], ly[i, 0, :1],
+                                     ui[i, 0, :1], 1)
+        named = trainer.named_params(st)
+        grads = [named[n].grad.cpu().clone() for n in names]
+        st, s2 = trainer.train_epoch(st, tscene, li[i, 0, 1:], ly[i, 0, 1:],
+                                     ui[i, 0, 1:], 1)
+        opt_of = {id(p): opt for opt in trainer._opts(st)
+                  for g in opt.param_groups for p in g["params"]}
+        named = trainer.named_params(st)
+        moments = [opt_of[id(named[n])].state[named[n]] for n in names]
+        rms = [(mo["exp_avg_sq"].cpu() / (1 - 0.999 ** float(mo["step"])))
+               .sqrt() for mo in moments]
+        fm = {k: torch.cat([m1[k][i, 0], m2[k][i, 0]]).cpu().numpy()
+              for k in m1}
+        sm = {k: torch.cat([s1[k], s2[k]]).cpu().numpy() for k in s1}
+        fp = trainer.named_params(fused[i])
+        out.append((fm, sm, fused_grads[i], grads,
+                    [fp[n].detach().cpu() for n in names],
+                    [named[n].detach().cpu() for n in names], rms,
+                    torch.equal(fused[i].generator.get_state(),
+                                st.generator.get_state())))
+    return out
+
+
+def fused_window(trainer, tscene, seeds: int) -> dict:
+    """The idle share of 20 fused steps of ``seeds`` seeds (after 5), as
+    ``profiled_window`` takes it for one seed."""
+    li, ly, ui = seed_schedule(tscene.labels, seeds, 45)
+    ms = trainer.stack_states([trainer.init_state((SEED, i))
+                               for i in range(seeds)])
+    trainer._run(ms, tscene, li[:, :, :5], ly[:, :, :5], ui[:, :, :5], [1])
+    return profile_window(lambda lo: trainer._run(
+        ms, tscene, li[:, :, lo:lo + 20], ly[:, :, lo:lo + 20],
+        ui[:, :, lo:lo + 20], [1], first_batch=lo))
+
+
+def seed_runs(lines):
+    """Of a ``cli.train`` output (``--print_per_batches 0``): the indices
+    of its training-time lines, and each run's net B and net E OA."""
+    train = [i for i, ln in enumerate(lines) if "training time ==" in ln]
+    oas = [float(re.search(r"OA=([0-9.]+)", lines[i + 1]).group(1))
+           for i, ln in enumerate(lines) if ln.startswith("Result (net")]
+    return train, oas[0::2], oas[1::2]
+
+
+def phase_fused(tmp, tscene, counter_fn, device):
+    """``cli.train --num_iters 4 --fused_iters --num_epochs 2`` beside the
+    serial ``--num_iters 4`` in this process, and one bf16 fused epoch:
+    training time, ms a seed-step, each seed's OA and the kernel launches
+    of each; 20 profiled steps of 4 fused seeds against 20 of one seed
+    (f32 and bf16).  Then 3 fused steps of 4 seeds against 3 serial steps
+    of each, for CMLPL, CPS and CCT, noise and dropout on, at the
+    card-vs-CPU bounds.  Returns kernel 1's and kernel 2's training
+    launches of the fused runs."""
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+    from cmlpl_tpu_torch.train import CCTTrainer, CMLPLTrainer, CPSTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    seeds, epochs = 4, 2
+    runs = {}
+    for label, extra in (
+            ("serial", []), ("fused", ["--fused_iters"]),
+            ("fused_bf16", ["--fused_iters", "--compute_dtype", "bfloat16"])):
+        ep = 1 if label == "fused_bf16" else epochs
+        for wrapper in WRAPPERS:
+            wrapper.launches = 0
+        _, lines, counts = run_cli(cli_train.main, [
+            "--dataID", str(DATA_ID), "--data_root", tmp,
+            "--save_path_prefix", os.path.join(tmp, label),
+            "--num_epochs", str(ep), "--num_iters", str(seeds),
+            "--print_per_batches", "0", *extra], counter_fn)
+        train, oa_b, oa_e = seed_runs(lines)
+        # the launches of a run's training: from the line before it (the
+        # last line of the run before, after its maps)
+        launched = [tuple(np.subtract(counts[i], counts[i - 1]
+                                      if i else (0, 0))) for i in train]
+        train_s = sum(float(re.search(r"== ([0-9.]+)s", lines[i]).group(1))
+                      for i in train)
+        seed_steps = seeds * ep * 78
+        require(len(oa_b) == len(oa_e) == seeds and min(oa_b) > 50,
+                f"{label}: OA {oa_b}, {oa_e}")
+        runs[label] = {"epochs": ep, "train_s": train_s,
+                       "ms_per_seed_step": train_s / seed_steps * 1e3,
+                       "oa_net_b": oa_b, "oa_net_e": oa_e,
+                       "launches_training": [list(map(int, x))
+                                             for x in launched],
+                       "launches_with_maps": list(counter_fn())}
+    require(runs["serial"]["launches_training"] == [[1, 0]] * seeds,
+            f"serial launches {runs['serial']['launches_training']}")
+    require(runs["fused"]["launches_training"] == [[1, 0]],
+            f"fused launches {runs['fused']['launches_training']}")
+    require(runs["fused_bf16"]["launches_training"] == [[0, 1]],
+            f"bf16 fused launches {runs['fused_bf16']['launches_training']}")
+
+    windows = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer = CMLPLTrainer(CMLPLConfig(compute_dtype=dtype),
+                               device=device)
+        windows[dtype] = {"fused_4_seeds": fused_window(trainer, tscene,
+                                                        seeds),
+                          "one_seed": profiled_window(trainer, tscene)}
+
+    # fused vs serial steps, noise and dropout on
+    holds = {}
+    for algo, cls in (("cmlpl", CMLPLTrainer), ("cps", CPSTrainer),
+                      ("cct", CCTTrainer)):
+        trainer = cls(CMLPLConfig(gather_impl="pool"), device=device)
+        adams = 2 if algo == "cct" else 1
+        worst = {}
+        for i, (fm, sm, fg, sg, fp, sp, rms, same_gen) in enumerate(
+                fused_vs_serial_steps(trainer, tscene, seeds, 3)):
+            what = f"fused {algo} seed {i}"
+            require(same_gen, f"{what}: generators differ after the steps")
+            grad_err = grad_gap(fg, sg)
+            param_err, held = param_gap(
+                [(a - b).abs().max() for a, b in zip(fg, sg)], fp, sp, rms,
+                rms, adams, trainer.config.lr)
+            require_f32_steps(what, fm, sm, grad_err, param_err, held, adams,
+                              trainer.config.lr, 3)
+            worst[i] = {"loss_max_abs_diff": {
+                k: float(np.abs(fm[k] - sm[k]).max()) for k in fm},
+                "step1_grad_max_diff_of_tensor_max": grad_err,
+                "params": param_err}
+        holds[algo] = worst
+    emit({"phase": "fused", "seeds": seeds, "runs": runs,
+          "profiled_windows": windows, "fused_vs_serial_3_steps": holds,
+          "note": "ms_per_seed_step: training time over seeds x steps; "
+                  "idle share over 20 steps (fused: 20 steps of 4 seeds)"})
+    return {"fused_f32": runs["fused"]["launches_training"][0][0],
+            "fused_bf16": runs["fused_bf16"]["launches_training"][0][1],
+            "shapes": fused_pool_kernels(tscene, seeds, epochs)}
+
+
+def fused_pool_kernels(tscene, seeds: int, epochs: int) -> dict:
+    """Both kernels at the fused run's pool: the ``seeds`` seeds' pools
+    of ``epochs``-epoch default schedules, each padded to the longest, in
+    one launch (f32, and bf16 from the bf16 cube), bitwise against the
+    plain gather, and timed as ``phase_train_gather`` times the pool."""
+    from cmlpl_tpu_torch.data.patches import gather_patches
+    from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
+                                                  gather_patches_f32)
+    from cmlpl_tpu_torch.train.driver import seed_pools
+
+    li, _, ui = default_schedule(tscene.labels, seeds * epochs)
+    pool, _, _ = seed_pools(*(a.reshape(seeds, epochs, *a.shape[1:])
+                              for a in (li, ui)))
+    ids = torch.from_numpy(pool).to(tscene.device)
+    label = f"fused pool B={len(pool)} ({seeds} seeds)"
+    report = {}
+    for name, wrapper, dtype in (
+            ("patch_gather_f32", gather_patches_f32, torch.float32),
+            ("patch_gather_bf16", gather_patches_bf16, torch.bfloat16)):
+        cube = tscene.padded_pca.to(dtype)
+        got = wrapper(cube, ids, cols=tscene.cols, w=W)
+        want = gather_patches(cube, ids, cols=tscene.cols, w=W)
+        torch.cuda.synchronize()
+        require(torch.equal(bits(got), bits(want)),
+                f"{name} {label}: not bitwise equal to the plain gather")
+        del got, want
+        report[name] = {label: {"max_abs_err": 0.0, "launches_timed": 1,
+                                **gather_times(wrapper, cube, [ids],
+                                               tscene.cols, rounds=3)}}
+        emit({"phase": "fused", "kernel": name, "case": label,
+              "bitwise_equal": True, **report[name][label]})
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2050,6 +2485,10 @@ def main() -> int:
         bf16_launches = phase_train_bf16(tmp, tscene, counter_fn)
         resume_launches = phase_resume(tmp, counter_fn, device)
         phase_extras(tmp, tscene, counter_fn, device)
+        # slice 7: prep, a profiled run served from its checkpoint, and
+        # fused multi-seed runs, in a process of their own
+        slice7 = slice7_in_child(os.path.join(tmp, "slice7"))
+        prep, fused = slice7["prep"], slice7["fused"]
         ab, scene_npz = ab_inputs(tmp)
         for algo in ("cmlpl", "cps", "cct"):
             phase_ab(ab, scene_npz, algo)
@@ -2075,7 +2514,12 @@ def main() -> int:
             "cli.train --gather_impl pallas, training":
             per_step["pallas"]["launches_training"][0],
             f"cli.train --checkpoint_every 1, {RESUME_EPOCHS} epochs and a "
-            "restart (pool an epoch), training": resume_launches},
+            "restart (pool an epoch), training": resume_launches,
+            "cli.train --profile_dir --checkpoint_dir --splits_dir, 2 epochs "
+            "(pool), training": prep["train"],
+            "cli.train --num_iters 4 --fused_iters, 2 epochs (one pool for "
+            "the 4 seeds), training": fused["fused_f32"],
+            "cli.predict --checkpoint_dir --net b, one map": prep["map"]},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
             per_step["pallas_bf16"]["launches_training"][1],
@@ -2084,7 +2528,10 @@ def main() -> int:
             "cli.train_cps --compute_dtype bfloat16, 1 epoch, training":
             bf16_launches["cps"],
             "cli.train_cct --compute_dtype bfloat16, 1 epoch, training":
-            bf16_launches["cct"]}}
+            bf16_launches["cct"],
+            "cli.train --num_iters 4 --fused_iters --compute_dtype bfloat16, "
+            "1 epoch (one pool for the 4 seeds), training":
+            fused["fused_bf16"]}}
     for name, n in zoo_launches.items():
         flags = " ".join(ZOO_EXTRA.get(name, []))
         launches_train["patch_gather_f32"][
@@ -2103,12 +2550,13 @@ def main() -> int:
                         "source": "cmlpl_tpu_torch/csrc/patch_gather.cu",
                         "replaces": replaces[name],
                         "launches": launches[name], **rep,
-                        "floor_device_ms": zoo_floors[name],
+                        "floor_device_ms": zoo_floors[name]["device_ms"],
+                        "floor": zoo_floors[name],
                         "floor_site": f"B=1 w={FLOOR_SITE[0]} "
                         f"C={FLOOR_SITE[1]}",
                         "launches_train": launches_train[name],
                         "train_shapes": train_gather[name]
-                        | zoo_kernels[name]})
+                        | fused["shapes"][name] | zoo_kernels[name]})
     emit({"total_s": time.perf_counter() - t_start, "card": card})
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -3,13 +3,15 @@
 
 The flags have the JAX package's names and defaults (reference
 ``train.py:355-380``), plus ``--device`` (the CUDA card unless asked for
-the CPU).  predict and serve read :func:`base_parser` and ``--weights``, a
-BaseNet2 param npz in the JAX layout (:mod:`cmlpl_tpu_torch.weights`).
+the CPU).  predict and serve read :func:`base_parser`: a BaseNet2 from
+``--weights`` (a param npz in the JAX layout, :mod:`cmlpl_tpu_torch.weights`)
+or from the latest checkpoint of ``--checkpoint_dir``, net ``--net``.
 train, train_cps and train_cct read :func:`train_parser`: its
 ``--weights_out`` writes the trained weights in that layout, and
 ``--checkpoint_dir`` holds the trainer states that ``--resume`` and
 ``--max_restarts`` restart from (:mod:`cmlpl_tpu_torch.utils.checkpoint`,
-the JAX package's directory contract in a format of the port's own).
+the JAX package's directory contract in a format of the port's own), and
+that predict and serve map with.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from cmlpl_tpu_torch.models.basenet import BaseNet2
 from cmlpl_tpu_torch.ops.patch_gather import TRAIN_GATHERS
 from cmlpl_tpu_torch.registry import get_dataset
 from cmlpl_tpu_torch.train.state import CMLPLConfig
-from cmlpl_tpu_torch.utils.checkpoint import (restore_checkpoint,
+from cmlpl_tpu_torch.utils.checkpoint import (load_net_params,
+                                              restore_checkpoint,
                                               save_checkpoint)
 from cmlpl_tpu_torch.weights import load_params_npz, state_dict_from_jax
 
@@ -71,7 +74,13 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--weights", type=str, default=None,
                    help="BaseNet2 params as a flat '<layer>/<leaf>' npz in "
                         "the JAX layout (what the training CLIs' "
-                        "--weights_out writes)")
+                        "--weights_out writes); or give --checkpoint_dir")
+    p.add_argument("--checkpoint_dir", type=str, default=None,
+                   help="map with a net of the latest checkpoint here (of "
+                        "cli.train or cli.train_cps); or give --weights")
+    p.add_argument("--net", type=str, default="b", choices=["b", "e"],
+                   help="which of the two mutually-trained networks of "
+                        "--checkpoint_dir")
     return p
 
 
@@ -142,6 +151,18 @@ def train_parser() -> argparse.ArgumentParser:
                         "mean±std (reference train.py:116 index_iter loop); "
                         "accepted and ignored by train_cps and train_cct, "
                         "as in the JAX package")
+    p.add_argument("--fused_iters", action="store_true",
+                   help="train: run all --num_iters runs as ONE step loop "
+                        "over seed-stacked states (torch.func.vmap; the "
+                        "serial loop's results within rounding; "
+                        "incompatible with --resume/--profile_dir/"
+                        "--checkpoint_every)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="train: write a torch.profiler Chrome trace (host "
+                        "ops and, on the card, its kernels) of the first "
+                        "run into this directory; ignored by train_cps, "
+                        "train_cct and train_backbone, as in the JAX "
+                        "package")
     p.add_argument("--weights_out", type=str, default=None,
                    help="write the trained params as a flat '/'-keyed npz "
                         "in the JAX layout: net B's for train and train_cps "
@@ -268,14 +289,20 @@ def save_history(args, history) -> None:
 
 
 def build_model(args, spec, device) -> BaseNet2:
-    """BaseNet2 for ``spec`` with the ``--weights`` params, in eval mode."""
-    if not args.weights:
-        raise SystemExit("--weights is required")
+    """BaseNet2 for ``spec`` with the params of ``--weights`` or of net
+    ``--net`` of ``--checkpoint_dir``'s latest checkpoint (exactly one of
+    the two), in eval mode."""
+    if bool(args.weights) == bool(args.checkpoint_dir):
+        raise SystemExit("give one of --weights and --checkpoint_dir"
+                         + (", not both" if args.weights else ""))
+    if args.weights:
+        params = load_params_npz(args.weights)
+    else:
+        params = load_net_params(args.checkpoint_dir, args.net)
     model = BaseNet2(num_features=spec.num_bands, dropout=args.dropout,
                      num_classes=spec.num_classes, n_pc=args.n_PC,
                      patch_size=args.w, compute_dtype=args.compute_dtype)
-    model.load_state_dict(
-        state_dict_from_jax(load_params_npz(args.weights)))
+    model.load_state_dict(state_dict_from_jax(params))
     return model.to(device).eval()
 
 

@@ -1,10 +1,13 @@
-"""One-shot serving CLI: classify a whole scene with BaseNet2 weights.
+"""One-shot serving CLI: classify a whole scene with a trained BaseNet2.
 
-    python -m cmlpl_tpu_torch.cli.predict --dataID 1 --weights w.npz \
-        --out map.svg
+    python -m cmlpl_tpu_torch.cli.predict --dataID 1 \
+        --checkpoint_dir ./ckpt --net b --out map.svg
+    python -m cmlpl_tpu_torch.cli.predict --dataID 1 --weights w.npz
 
-Counterpart of ``cmlpl_tpu/cli/predict.py``; ``--weights`` (a JAX-layout
-npz, see :mod:`cmlpl_tpu_torch.weights`) replaces ``--checkpoint_dir``.
+Counterpart of ``cmlpl_tpu/cli/predict.py``: net ``--net`` of the latest
+checkpoint of ``--checkpoint_dir`` (the port's ``state.npz``, written by
+``cli.train`` or ``cli.train_cps``), or ``--weights`` (a JAX-layout npz,
+see :mod:`cmlpl_tpu_torch.weights`).
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ def main(argv=None):
         splits = generate_splits(scene.labels, num_label=args.num_label)
         acc = cal_accuracy(pred[splits.test],
                            scene.labels[splits.test] - 1)
-        report_accuracy("weights", acc)
+        report_accuracy(f"net {args.net.upper()}" if args.checkpoint_dir
+                        else "weights", acc)
     return pred
 
 

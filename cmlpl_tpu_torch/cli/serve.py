@@ -1,9 +1,13 @@
-"""Persistent serving loop: load BaseNet2 weights ONCE, classify many scenes.
+"""Persistent serving loop: load a trained BaseNet2 ONCE, classify many
+scenes.
 
+    python -m cmlpl_tpu_torch.cli.serve --dataID 1 --checkpoint_dir ./ckpt
     python -m cmlpl_tpu_torch.cli.serve --dataID 1 --weights w.npz
 
-Counterpart of ``cmlpl_tpu/cli/serve.py``.  Requests stream in as JSON
-lines on stdin and results stream out as JSON lines on stdout.
+Counterpart of ``cmlpl_tpu/cli/serve.py``: net ``--net`` (b or e) of the
+latest checkpoint of ``--checkpoint_dir``, or ``--weights``.  Requests
+stream in as JSON lines on stdin and results stream out as JSON lines on
+stdout.
 
 Request line:  {"cube": "scene.npy", "out": "map.svg", "id": "r1"}
   - ``cube``: path to a (rows, cols, bands) .npy raw cube, or omitted to

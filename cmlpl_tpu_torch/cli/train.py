@@ -6,17 +6,23 @@ OA/AA/Kappa report, class map, CSV.
 
 Runs on the CUDA card unless ``--device cpu``.  ``--num_iters`` repeats
 the run serially with seeds ``(--seed, iteration)`` and reports mean ± std;
-``--resume`` applies to the first.  ``--weights_out`` writes net B's
-params as the JAX-layout npz that predict and serve read;
-``--checkpoint_dir`` the trainer state.  Run as a module, a failed run is
-retried up to ``--max_restarts`` times from its latest checkpoint.
-``--fused_iters``, ``--multihost`` and ``--profile_dir`` are not ported
-yet (ROADMAP.md section 1, item 10).
+``--resume`` applies to the first, and ``--profile_dir`` traces the first
+(``utils/profiling.trace``).  With ``--fused_iters`` the runs are one step
+loop over seed-stacked states (``EpochDriver.train_multi_run``), the
+serial loop's results within rounding; it refuses ``--resume``,
+``--profile_dir`` and ``--checkpoint_every`` as the JAX CLI does.
+``--weights_out`` writes net B's params (of the last run) as the
+JAX-layout npz that predict and serve read; ``--checkpoint_dir`` the
+trainer state.  Run as a module, a failed run is retried up to
+``--max_restarts`` times from its latest checkpoint.  ``--multihost`` is
+not ported (ROADMAP.md section 1, item 10b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import time
 
 import numpy as np
 
@@ -25,13 +31,14 @@ from cmlpl_tpu_torch.cli._common import (build_config, build_data,
                                          maybe_resume, report_accuracy,
                                          run_resilient,
                                          save_final_checkpoint, save_history,
-                                         save_path, scene_map, timed_fit,
-                                         train_parser)
+                                         save_path, scene_map, sync,
+                                         timed_fit, train_parser)
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.metrics import cal_accuracy
 from cmlpl_tpu_torch.eval.report import save_report
 from cmlpl_tpu_torch.eval.visualize import save_class_map
 from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+from cmlpl_tpu_torch.utils.profiling import trace
 from cmlpl_tpu_torch.weights import params_to_jax, save_params_npz
 
 
@@ -50,19 +57,8 @@ def main(argv=None):
                          net.model.state_dict(), name)
 
     runs_b, runs_e = [], []
-    state = None
-    for index_iter in range(args.num_iters):
-        state = trainer.init_state((args.seed, index_iter))
-        start_epoch = 0
-        if index_iter == 0:
-            state, start_epoch = maybe_resume(args, trainer, state,
-                                              sampler.batches_per_epoch)
-        state, history = timed_fit(trainer, state, scene, sampler,
-                                   args.print_per_batches, start_epoch,
-                                   make_epoch_hook(args, trainer))
-        if index_iter == 0:
-            save_history(args, history)
 
+    def report(state):
         pred_b = net_map(state.net_b, "net B")
         pred_e = net_map(state.net_e, "net E")
         acc_b = cal_accuracy(pred_b[splits.test], y_test)
@@ -74,6 +70,40 @@ def main(argv=None):
         save_class_map(
             os.path.join(out, f"CMLPL_OA_{int(acc_b.oa * 10000)}.svg"),
             pred_b + 1, spec, rows=scene.rows, cols=scene.cols)
+
+    if args.fused_iters and args.num_iters > 1:
+        if args.resume or args.profile_dir or args.checkpoint_every:
+            raise SystemExit("--fused_iters is incompatible with "
+                             "--resume/--profile_dir/--checkpoint_every")
+        sync(device)
+        t0 = time.perf_counter()
+        states, metrics = trainer.train_multi_run(args.seed, scene, sampler,
+                                                  args.num_iters)
+        sync(device)
+        print(f"fused {args.num_iters}-seed training time == "
+              f"{time.perf_counter() - t0:.3f}s")
+        # seed 0's history, as the serial loop saves the first run's
+        m0 = {k: v[0].reshape(-1).tolist() for k, v in metrics.items()}
+        save_history(args, [dict(zip(m0, s)) for s in zip(*m0.values())])
+        for state in states:
+            report(state)
+    else:
+        for index_iter in range(args.num_iters):
+            state = trainer.init_state((args.seed, index_iter))
+            start_epoch = 0
+            profile = None
+            if index_iter == 0:
+                state, start_epoch = maybe_resume(args, trainer, state,
+                                                  sampler.batches_per_epoch)
+                profile = args.profile_dir
+            with trace(profile) if profile else contextlib.nullcontext():
+                state, history = timed_fit(trainer, state, scene, sampler,
+                                           args.print_per_batches,
+                                           start_epoch,
+                                           make_epoch_hook(args, trainer))
+            if index_iter == 0:
+                save_history(args, history)
+            report(state)
 
     save_report(os.path.join(out, "cmlpl_results.csv"), runs_b, runs_e)
     if args.num_iters > 1:

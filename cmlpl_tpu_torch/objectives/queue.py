@@ -55,13 +55,15 @@ def memory_smooth(feats: torch.Tensor, probs: torch.Tensor,
 def queue_update(queue: QueueState, new_feats: torch.Tensor,
                  new_probs: torch.Tensor) -> None:
     """FIFO write of n rows at the pointer, modulo the queue size, in
-    place: at most two contiguous slices."""
-    size = queue.feats.shape[0]
-    n = new_feats.shape[0]
+    place: at most two contiguous slices.  Rows are the second-last dim,
+    so a seed-stacked queue ((seeds, size, ...), one pointer: every seed
+    writes as many rows a step) takes each seed's rows at once."""
+    size = queue.feats.shape[-2]
+    n = new_feats.shape[-2]
     if n > size:
         raise ValueError(f"{n} rows do not fit a queue of {size}")
     head = min(n, size - queue.ptr)
     for dst, src in ((queue.feats, new_feats), (queue.probs, new_probs)):
-        dst[queue.ptr:queue.ptr + head] = src[:head]
-        dst[:n - head] = src[head:]
+        dst[..., queue.ptr:queue.ptr + head, :] = src[..., :head, :]
+        dst[..., :n - head, :] = src[..., head:, :]
     queue.ptr = (queue.ptr + n) % size

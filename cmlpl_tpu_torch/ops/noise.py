@@ -82,22 +82,27 @@ def masked_choice(g: torch.Generator, mask: torch.Tensor,
 
 def make_noiser(noise_impl: str, scale: float):
     """Returns ``noisy(generator, a) -> a + scale * sample(a.shape)``,
-    sampled in ``a.dtype`` on ``a.device``."""
+    sampled in ``a.dtype`` on ``a.device``.  Its ``sample(generator,
+    shape, dtype, device)`` and ``scale`` let a caller draw a view's noise
+    before the tensor it perturbs exists (a fused run draws outside its
+    vmap) and add it later, by the same two operations."""
     if noise_impl == "normal":
-        def sample(g, a):
-            return normal(g, a.shape, a.dtype, a.device)
+        def sample(g, shape, dtype, device):
+            return normal(g, shape, dtype, device)
     elif noise_impl == "binom16":
-        def sample(g, a):
-            bits = torch.randint(0, 1 << 16, a.shape, generator=g,
-                                 device=a.device, dtype=torch.int32)
-            return (popcount16(bits).to(a.dtype) - 8) * 0.5
+        def sample(g, shape, dtype, device):
+            bits = torch.randint(0, 1 << 16, shape, generator=g,
+                                 device=device, dtype=torch.int32)
+            return (popcount16(bits).to(dtype) - 8) * 0.5
     else:
         raise ValueError(f"unknown noise_impl {noise_impl!r} "
                          "(want 'normal' or 'binom16')")
 
     def noisy(g, a):
-        return a + sample(g, a) * scale
+        return a + sample(g, a.shape, a.dtype, a.device) * scale
 
+    noisy.sample = sample
+    noisy.scale = scale
     return noisy
 
 

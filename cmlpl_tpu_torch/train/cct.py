@@ -103,34 +103,44 @@ class CCTTrainer(EpochDriver):
     def state_from_jax(self, tree, run_seed: int = 0) -> CCTTrainState:
         return cct_state_from_jax(tree, self, run_seed)
 
-    def _step(self, state: CCTTrainState, xp_l, x_l, xp_u, x_u, lab_y,
-              epoch: int, batch_index: int) -> dict:
-        cfg = self.config
-        g = state.generator
-        noisy = self.noisy
-        bt = lab_y.shape[0]
-        m = state.model
+    def _modules(self, state: CCTTrainState) -> dict:
+        return {"model": state.model}
 
-        # noisy labeled and unlabeled inputs (trian_CCT.py:179-197)
-        if cfg.noise_fused:
+    def _opts(self, state: CCTTrainState) -> tuple:
+        return state.opt_base, state.opt_aug
+
+    def _draws(self, g, xp_l, x_l, xp_u, x_u, lab_y) -> dict:
+        """The noisy labeled and unlabeled inputs (trian_CCT.py:179-197),
+        then the two feature-space perturbations of the unlabeled
+        features (trian_CCT.py:205-206), drawn here and added in
+        ``_losses``."""
+        noisy = self.noisy
+        if self.config.noise_fused:
             xp_all = noisy(g, torch.cat([xp_l, xp_u]))
             x_all = noisy(g, torch.cat([x_l, x_u]))
         else:
             xp_all = torch.cat([noisy(g, xp_l), noisy(g, xp_u)])
             x_all = torch.cat([noisy(g, x_l), noisy(g, x_u)])
+        # the encoder's joint feature is f32
+        shape = (xp_u.shape[0], joint_dim(self.config.patch_size))
+        aug1, aug2 = (noisy.sample(g, shape, torch.float32, xp_u.device)
+                      for _ in range(2))
+        return {"xp": xp_all, "x": x_all, "aug1": aug1, "aug2": aug2}
 
-        fea_all, _ = m["encoder"](xp_all, x_all)
+    def _losses(self, apply, d, lab_y, carry, epoch: int, batch_index: int,
+                g=None):
+        bt = lab_y.shape[0]
+        scale = self.noisy.scale
+        fea_all, _ = apply("model.encoder", d["xp"], d["x"])
         fea_lab, fea_un = fea_all[:bt], fea_all[bt:]
-        lab_out = m["dec_base"](fea_lab)
+        lab_out = apply("model.dec_base", fea_lab)
         cls = cross_entropy(lab_out, lab_y)
 
-        # feature-space perturbations of the unlabeled features
-        # (trian_CCT.py:205-206)
-        fea_aug1 = noisy(g, fea_un)
-        fea_aug2 = noisy(g, fea_un)
-        origin_out = m["dec_base"](fea_un)
-        aug_out1 = m["dec1"](fea_aug1)
-        aug_out2 = m["dec2"](fea_aug2)
+        fea_aug1 = fea_un + d["aug1"] * scale
+        fea_aug2 = fea_un + d["aug2"] * scale
+        origin_out = apply("model.dec_base", fea_un)
+        aug_out1 = apply("model.dec1", fea_aug1)
+        aug_out2 = apply("model.dec2", fea_aug2)
         ori_t = torch.softmax(origin_out.detach(), dim=1)
         t1 = torch.softmax(aug_out1.detach(), dim=1)
         t2 = torch.softmax(aug_out2.detach(), dim=1)
@@ -139,13 +149,10 @@ class CCTTrainer(EpochDriver):
                  + softmax_js_loss(origin_out, t2)
                  + softmax_js_loss(aug_out1, ori_t)
                  + softmax_js_loss(aug_out2, ori_t))
-
-        self._update(state, total, state.opt_base, state.opt_aug)
-
         with torch.no_grad():
             acc = (lab_out.argmax(dim=1) == lab_y).float().mean()
-        return {"total_loss": total.detach(), "cls_loss": cls.detach(),
-                "acc": acc}
+        return total, {"total_loss": total.detach(), "cls_loss": cls.detach(),
+                       "acc": acc}, {}
 
     def _format_log(self, epoch, batch_index, num_batches, m):
         return (f"Epoch {epoch + 1}/{self.config.num_epochs}: "

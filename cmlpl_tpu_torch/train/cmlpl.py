@@ -17,7 +17,7 @@ The opt-in extras (``cmlpl_tpu/train/cmlpl.py:235-268,279-293,355-402``):
 ``augment`` transforms the gathered patches before the views are drawn;
 ``extra_loss`` adds ``extra_weight`` times an extra term to each net's
 total and the metric ``extra_loss``; ``stack_nets`` runs both forwards as
-one batched forward (:func:`stacked_forward`).
+one batched forward (``driver.stacked_forward``).
 
 Random streams: every draw of a step comes from the state's
 ``torch.Generator``, on the training device, in a fixed order: the
@@ -28,12 +28,9 @@ net E's dropout mask, the memory bank's choices.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
-from torch.func import functional_call, vmap
 
 from cmlpl_tpu_torch.data.augment import (mixture_noise, radiation_noise,
                                           random_flip, random_rot90)
-from cmlpl_tpu_torch.models.basenet import BaseNet2, joint_dim, keep_mask
 from cmlpl_tpu_torch.objectives.cmlpl import (adaptive_threshold,
                                               graph_contrastive,
                                               pseudo_label_graph,
@@ -44,7 +41,6 @@ from cmlpl_tpu_torch.objectives.mmd import mmd_loss
 from cmlpl_tpu_torch.objectives.queue import (memory_smooth, queue_init,
                                               queue_update)
 from cmlpl_tpu_torch.objectives.supervised import cross_entropy
-from cmlpl_tpu_torch.ops.noise import two_net_views
 from cmlpl_tpu_torch.train.driver import TwoNetDriver
 from cmlpl_tpu_torch.train.state import CMLPLConfig, CMLPLTrainState
 from cmlpl_tpu_torch.weights import cmlpl_state_from_jax, cmlpl_state_to_jax
@@ -55,25 +51,6 @@ METRICS = ("loss_contrast", "total_loss", "cls_loss", "con_loss",
            "total_loss_e", "acc", "mask_rate")
 EXTRA_LOSSES = ("", "memobank", "mmd", "ntxent")
 AUGMENTS = ("flip", "rot90", "radiation", "mixture")
-
-
-def stacked_forward(nets, xps, xs, keeps=None):
-    """The BaseNet2s ``nets`` on their inputs as ONE batched forward: a
-    ``torch.func.vmap`` of ``functional_call`` over their params stacked
-    on a leading axis, so each conv and product runs once at twice the
-    batch.  ``torch.stack`` is differentiable, so the gradients reach each
-    net's own params.  ``keeps``: the nets' dropout masks, stacked, drawn
-    by the caller (nothing random runs inside the vmap).  Returns the
-    nets' (logits, feat), stacked."""
-    names = [n for n, _ in nets[0].named_parameters()]
-    per_net = [dict(net.named_parameters()) for net in nets]
-    params = {n: torch.stack([p[n] for p in per_net]) for n in names}
-
-    def one(p, xp, x, keep):
-        return functional_call(nets[0], p, (xp, x), {"keep": keep})
-
-    return vmap(one, in_dims=(0, 0, 0, None if keeps is None else 0))(
-        params, torch.stack(xps), torch.stack(xs), keeps)
 
 
 class CMLPLTrainer(TwoNetDriver):
@@ -129,42 +106,38 @@ class CMLPLTrainer(TwoNetDriver):
             xp = mixture_noise(g, xp, labels)
         return xp
 
-    def _forwards(self, g, net_b: BaseNet2, net_e: BaseNet2, xp_b, x_b,
-                  xp_e, x_e):
-        """((logits, feat) of net B, of net E): two forwards, or one
-        stacked forward whose dropout masks are drawn here, in the two
-        forwards' order and shapes."""
-        if not self.config.stack_nets:
-            return (net_b(xp_b, x_b, generator=g),
-                    net_e(xp_e, x_e, generator=g))
-        keeps = None
-        if net_b.dropout > 0 and net_b.training:
-            shape = (xp_b.shape[0], joint_dim(self.config.patch_size))
-            keeps = torch.stack([keep_mask(shape, net.dropout, g, xp_b.device)
-                                 for net in (net_b, net_e)])
-        logits, feat = stacked_forward((net_b, net_e), (xp_b, xp_e),
-                                       (x_b, x_e), keeps)
-        return (logits[0], feat[0]), (logits[1], feat[1])
+    def _carry(self, state: CMLPLTrainState) -> dict:
+        carry = {"queue_w": state.queue_w, "queue_s": state.queue_s}
+        if state.bank is not None:
+            carry["bank"] = state.bank
+        return carry
 
-    def _step(self, state: CMLPLTrainState, xp_l, x_l, xp_u, x_u, lab_y,
-              epoch: int, batch_index: int) -> dict:
-        cfg = self.config
-        g = state.generator
-        bt = lab_y.shape[0]
-        net_b, net_e = state.net_b.model, state.net_e.model
-        adap_mask_thr = adaptive_threshold(epoch, cfg.num_epochs, cfg.thr)
-        warm = epoch > 0 or batch_index > cfg.queue_batch
+    def _check_fusable(self) -> None:
+        if self.config.extra_loss == "memobank":
+            raise NotImplementedError(
+                "a fused multi-seed run (--fused_iters) with --extra_loss "
+                "memobank is not ported: the bank's choices depend on the "
+                "step's forward (ROADMAP.md section 1)")
 
-        if cfg.augment:
+    def _draws(self, g, xp_l, x_l, xp_u, x_u, lab_y) -> dict:
+        """The augmentations (labeled, then unlabeled), the noise views,
+        net B's then net E's dropout mask."""
+        if self.config.augment:
             xp_l = self._augmented(g, xp_l, lab_y)
             xp_u = self._augmented(g, xp_u)
-        xp_b_all, x_b_all, xp_e_all, x_e_all = two_net_views(
-            self.noisy, cfg.noise_fused, g, xp_l, x_l, xp_u, x_u)
-        onehot = F.one_hot(lab_y, cfg.num_classes).float()
+        return self._views(g, xp_l, x_l, xp_u, x_u)
+
+    def _losses(self, apply, d, lab_y, carry, epoch: int, batch_index: int,
+                g=None):
+        cfg = self.config
+        bt = lab_y.shape[0]
+        adap_mask_thr = adaptive_threshold(epoch, cfg.num_epochs, cfg.thr)
+        warm = epoch > 0 or batch_index > cfg.queue_batch
+        onehot = (lab_y[:, None] == torch.arange(
+            cfg.num_classes, device=lab_y.device)).float()
 
         (logits_b_all, feat_b_all), (logits_e_all, feat_e_all) = \
-            self._forwards(g, net_b, net_e, xp_b_all, x_b_all, xp_e_all,
-                           x_e_all)
+            self._forwards(apply, d)
         lab_b, un_b = logits_b_all[:bt], logits_b_all[bt:]
         feat_lab_b, xs = feat_b_all[:bt], feat_b_all[bt:]
         lab_e, un_e = logits_e_all[:bt], logits_e_all[bt:]
@@ -177,24 +150,26 @@ class CMLPLTrainer(TwoNetDriver):
         with torch.no_grad():
             probs_orig = torch.softmax(un_e.detach(), dim=1)
             probs_orig1 = torch.softmax(un_b.detach(), dim=1)
-            # smoothing reads the queues before this step writes them
+            # smoothing reads the queues, which the step writes after
+            # the update
             probs, probs1 = probs_orig, probs_orig1
             if warm:
-                probs = memory_smooth(xw.detach(), probs_orig, state.queue_w,
-                                      cfg.alpha, cfg.temperature)
+                probs = memory_smooth(xw.detach(), probs_orig,
+                                      carry["queue_w"], cfg.alpha,
+                                      cfg.temperature)
                 probs1 = memory_smooth(xs.detach(), probs_orig1,
-                                       state.queue_s, cfg.alpha,
+                                       carry["queue_s"], cfg.alpha,
                                        cfg.temperature)
             mask = (probs.max(dim=1).values >= adap_mask_thr).float()
             masks = (probs1.max(dim=1).values >= adap_mask_thr).float()
             # [other-net unlabeled feats, own labeled feats] with the
             # pre-smoothing probs / one-hot labels (train.py:223-237)
-            queue_update(state.queue_w,
-                         torch.cat([xw.detach(), feat_lab_b.detach()]),
-                         torch.cat([probs_orig, onehot]))
-            queue_update(state.queue_s,
-                         torch.cat([xs.detach(), feat_lab_e.detach()]),
-                         torch.cat([probs_orig1, onehot]))
+            writes = {"queue_w": (torch.cat([xw.detach(),
+                                             feat_lab_b.detach()]),
+                                  torch.cat([probs_orig, onehot])),
+                      "queue_s": (torch.cat([xs.detach(),
+                                             feat_lab_e.detach()]),
+                                  torch.cat([probs_orig1, onehot]))}
             q, qn = pseudo_label_graph(probs1, probs)
 
         # ---- consistency (train.py:239-242) ----
@@ -211,13 +186,12 @@ class CMLPLTrainer(TwoNetDriver):
         total_e = cls_e + cfg.w_contrast * contrast_e \
             + cfg.w_consistency * con_e
         if cfg.extra_loss:
-            extra_b, extra_e = self._extra(state, g, probs, xs, xw,
-                                           feat_lab_b, feat_lab_e)
+            extra_b, extra_e, bank = self._extra(
+                carry.get("bank"), g, probs, xs, xw, feat_lab_b, feat_lab_e)
             total_b = total_b + cfg.extra_weight * extra_b
             total_e = total_e + cfg.extra_weight * extra_e
-
-        self._update(state, total_b + total_e, state.net_b.opt,
-                     state.net_e.opt)
+            if bank is not None:
+                writes["bank"] = bank
 
         with torch.no_grad():
             acc_e = (lab_e.argmax(dim=1) == lab_y).float().mean()
@@ -228,30 +202,38 @@ class CMLPLTrainer(TwoNetDriver):
                    "mask_rate": mask.mean()}
         if cfg.extra_loss:
             metrics["extra_loss"] = extra_b.detach()
-        return metrics
+        return total_b + total_e, metrics, writes
 
-    def _extra(self, state: CMLPLTrainState, g, probs, xs, xw, feat_lab_b,
-               feat_lab_e):
+    @torch.no_grad()
+    def _write(self, carry: dict, writes: dict) -> None:
+        for name in ("queue_w", "queue_s"):
+            queue_update(carry[name], *writes[name])
+        if "bank" in writes:
+            for field in ("feats", "count", "ptr"):
+                getattr(carry["bank"], field).copy_(
+                    getattr(writes["bank"], field))
+
+    def _extra(self, bank, g, probs, xs, xw, feat_lab_b, feat_lab_e):
         """(net B's, net E's) extra term (``cmlpl_tpu/train/cmlpl.py``
-        ``:355-388``); "memobank" replaces the state's bank."""
+        ``:355-388``), and the new bank under "memobank" (else None)."""
         cfg = self.config
         if cfg.extra_loss == "ntxent":
             # the two nets' views of the same unlabeled samples
             return (nt_xent(xs, xw.detach(), cfg.temperature),
-                    nt_xent(xs.detach(), xw, cfg.temperature))
+                    nt_xent(xs.detach(), xw, cfg.temperature), None)
         if cfg.extra_loss == "mmd":
             # labeled vs unlabeled feature distributions, per net
-            return mmd_loss(feat_lab_b, xs), mmd_loss(feat_lab_e, xw)
+            return mmd_loss(feat_lab_b, xs), mmd_loss(feat_lab_e, xw), None
         # U2PL InfoNCE: net E (the smoothed probs) teaches net B; the
         # reference's percentile entropy split is a median split, with
         # jnp.median's mean of the two middle values (torch.quantile)
         ent = -torch.sum(probs * torch.log(probs + 1e-10), dim=1)
         med = torch.quantile(ent, 0.5)
-        extra_b, state.bank = memobank_contrastive(
+        extra_b, bank = memobank_contrastive(
             xs, xw.detach(), probs, probs.argmax(dim=1), ent <= med,
-            ent > med, state.bank, g, num_queries=32, num_negatives=16,
+            ent > med, bank, g, num_queries=32, num_negatives=16,
             temperature=0.5)
-        return extra_b, torch.zeros((), device=xs.device)
+        return extra_b, torch.zeros((), device=xs.device), bank
 
     # ------------------------------------------------------------------ #
     def _format_log(self, epoch, batch_index, num_batches, m):

@@ -19,7 +19,6 @@ import torch
 
 from cmlpl_tpu_torch.objectives.cps import cps_cross_supervision
 from cmlpl_tpu_torch.objectives.supervised import cross_entropy
-from cmlpl_tpu_torch.ops.noise import two_net_views
 from cmlpl_tpu_torch.train.driver import TwoNetDriver
 from cmlpl_tpu_torch.train.state import NetState
 from cmlpl_tpu_torch.weights import cps_state_from_jax, cps_state_to_jax
@@ -54,15 +53,13 @@ class CPSTrainer(TwoNetDriver):
     def state_from_jax(self, tree, run_seed: int = 0) -> CPSTrainState:
         return cps_state_from_jax(tree, self, run_seed)
 
-    def _step(self, state: CPSTrainState, xp_l, x_l, xp_u, x_u, lab_y,
-              epoch: int, batch_index: int) -> dict:
-        cfg = self.config
-        g = state.generator
+    def _draws(self, g, xp_l, x_l, xp_u, x_u, lab_y) -> dict:
+        return self._views(g, xp_l, x_l, xp_u, x_u)
+
+    def _losses(self, apply, d, lab_y, carry, epoch: int, batch_index: int,
+                g=None):
         bt = lab_y.shape[0]
-        xp_b, x_b, xp_e, x_e = two_net_views(
-            self.noisy, cfg.noise_fused, g, xp_l, x_l, xp_u, x_u)
-        logits_b, _ = state.net_b.model(xp_b, x_b, generator=g)
-        logits_e, _ = state.net_e.model(xp_e, x_e, generator=g)
+        (logits_b, _), (logits_e, _) = self._forwards(apply, d)
         lab_b, un_b = logits_b[:bt], logits_b[bt:]
         lab_e, un_e = logits_e[:bt], logits_e[bt:]
         cls_b = cross_entropy(lab_b, lab_y)
@@ -71,14 +68,11 @@ class CPSTrainer(TwoNetDriver):
         cross_e = cps_cross_supervision(un_e, un_b)
         total_b = cls_b + self.CROSS_WEIGHT * cross_b
         total_e = cls_e + self.CROSS_WEIGHT * cross_e
-
-        self._update(state, total_b + total_e, state.net_b.opt,
-                     state.net_e.opt)
-
         with torch.no_grad():
             acc_e = (lab_e.argmax(dim=1) == lab_y).float().mean()
-        return {"total_loss": total_b.detach(), "cls_loss": cls_b.detach(),
-                "con_loss": cross_b.detach(), "acc": acc_e}
+        return total_b + total_e, {
+            "total_loss": total_b.detach(), "cls_loss": cls_b.detach(),
+            "con_loss": cross_b.detach(), "acc": acc_e}, {}
 
     def _format_log(self, epoch, batch_index, num_batches, m):
         return (f"Epoch {epoch + 1}/{self.config.num_epochs}: "

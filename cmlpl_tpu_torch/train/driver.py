@@ -1,8 +1,12 @@
 """The trainers' shared driver (``cmlpl_tpu/train/driver.py:30-58,219-273``):
 the gather set-up, the step loop and ``fit``, common to CMLPL, CPS and CCT.
 
-A subclass provides ``_step`` (one optimisation step on the gathered
-patches and spectra), ``init_state`` and ``_format_log``.
+A subclass provides ``init_state``, ``_format_log`` and its step in two
+parts: ``_draws`` (every random draw of the step, from one seed's
+generator, in the step's order) and ``_losses`` (the rest, through
+:class:`Apply`, so the same code runs on a state's modules or, under
+``torch.func.vmap``, on one seed's slice of stacked params); ``_modules``,
+``_opts``, ``_carry`` and ``_write`` name the state's parts.
 
 Gathers (``CMLPLConfig.gather_impl``): in "pool" mode, the default at the
 reference schedule, the unique pixels of one call (a run, an epoch or a
@@ -31,7 +35,18 @@ order either way, and as in the JAX package.
 
 Metrics stay on the device until the call ends and then come back in one
 copy; the history is a list of dicts of floats, one per step.
-``train_multi_run`` (fused multi-seed runs) waits for ROADMAP item 10.
+
+Fused multi-seed runs (:meth:`EpochDriver.train_multi_run`, the JAX
+package's ``cmlpl_tpu/train/driver.py:149-207``): N seeds' runs as one
+step loop over a :class:`SeedStack`.  Each parameter is one leaf of shape
+(N, ...), and each Adam of a state is one Adam over such leaves: Adam is
+elementwise with one step count, so it is N Adams.  A step draws each
+seed's randoms from that seed's generator outside the vmap (``_draws``),
+runs ``_losses`` for all seeds as one ``vmap`` (each convolution one
+grouped convolution, each product one batched product), takes ONE
+backward over the sum of the seeds' losses (each seed's gradient is its
+own) and writes the queues once for all seeds.  Each seed's pool is padded
+to one length with its first id, and the pools are gathered as one.
 """
 
 from __future__ import annotations
@@ -40,11 +55,13 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.func import functional_call, vmap
 
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision, resolve_device
-from cmlpl_tpu_torch.models.basenet import BaseNet2
-from cmlpl_tpu_torch.ops.noise import make_noiser
+from cmlpl_tpu_torch.models.basenet import BaseNet2, joint_dim, keep_mask
+from cmlpl_tpu_torch.objectives.queue import QueueState
+from cmlpl_tpu_torch.ops.noise import make_noiser, two_net_views
 from cmlpl_tpu_torch.ops.patch_gather import (gather_pool,
                                               make_input_cast,
                                               make_train_gather,
@@ -65,10 +82,83 @@ def stack_schedule(sampler, num_epochs: int):
     return tuple(np.stack([e[i] for e in epochs]) for i in range(3))
 
 
-def not_ported(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md section 1, item {item} "
-        f"({name})")
+def seed_pools(li, ui):
+    """Pool-mode host prep of a seed-stacked schedule (S, ...): each seed's
+    pool (``poolify_batches``), padded to the longest with its own first
+    id (``cmlpl_tpu/train/driver.py:183-196``), as one flat pool of S
+    equal blocks, and the batch ids as positions into it.  One seed gives
+    ``poolify_batches``'s pool."""
+    pools, lis, uis = zip(*(poolify_batches(a, b) for a, b in zip(li, ui)))
+    plen = max(len(p) for p in pools)
+    pool = np.concatenate([np.concatenate(
+        [p, np.full(plen - len(p), p[0], p.dtype)]) for p in pools])
+    offset = (np.arange(len(pools), dtype=np.int32) * plen).reshape(
+        (-1,) + (1,) * (np.ndim(lis[0])))
+    return pool, np.stack(lis) + offset, np.stack(uis) + offset
+
+
+class Apply:
+    """Calls a state's modules by path (``"net_b"``, ``"model.encoder"``):
+    with their own params, or, given ``params`` (full name -> tensor, as
+    :meth:`EpochDriver.named_params` names them), through
+    ``torch.func.functional_call`` with those, as a fused run does for one
+    seed inside its vmap."""
+
+    def __init__(self, modules: torch.nn.ModuleDict, params=None):
+        self.modules = modules
+        self.params = params
+
+    def _params(self, path: str) -> dict:
+        prefix = path + "."
+        return {k[len(prefix):]: v for k, v in self.params.items()
+                if k.startswith(prefix)}
+
+    def __call__(self, path: str, *args, **kwargs):
+        module = self.modules.get_submodule(path)
+        if self.params is None:
+            return module(*args, **kwargs)
+        return functional_call(module, self._params(path), args, kwargs)
+
+    def stacked(self, paths, xps, xs, keeps=None):
+        """The same-architecture modules at ``paths`` as ONE batched
+        forward over their stacked params (:func:`stacked_forward`)."""
+        mods = [self.modules.get_submodule(p) for p in paths]
+        params = ([dict(m.named_parameters()) for m in mods]
+                  if self.params is None else
+                  [self._params(p) for p in paths])
+        return stacked_forward(mods[0], params, xps, xs, keeps)
+
+
+def stacked_forward(module, params, xps, xs, keeps=None):
+    """``module`` under each of the param dicts ``params`` as ONE batched
+    forward: a ``torch.func.vmap`` of ``functional_call`` over the params
+    stacked on a leading axis, so each conv and product runs once at the
+    batch times their number.  ``torch.stack`` is differentiable, so the
+    gradients reach each dict's own params.  ``keeps``: the dropout masks,
+    stacked, drawn by the caller (nothing random runs inside the vmap).
+    Returns the (logits, feat) of each, stacked."""
+    stacked = {n: torch.stack([p[n] for p in params]) for n in params[0]}
+
+    def one(p, xp, x, keep):
+        return functional_call(module, p, (xp, x), {"keep": keep})
+
+    return vmap(one, in_dims=(0, 0, 0, None if keeps is None else 0))(
+        stacked, torch.stack(xps), torch.stack(xs), keeps)
+
+
+@dataclasses.dataclass
+class SeedStack:
+    """N seeds' trainer states as one (:meth:`EpochDriver.stack_states`):
+    each parameter one (N, ...) leaf under one Adam per Adam of a state,
+    the carried state (CMLPL's queues) stacked the same way, and the
+    seeds' own generators.  ``states`` are the seeds' states, written
+    back by :meth:`EpochDriver.unstack`."""
+    states: list
+    params: dict              # full name -> (N, ...) leaf
+    opts: list                # torch.optim.Adam over the leaves
+    carry: dict               # name -> stacked QueueState
+    modules: torch.nn.ModuleDict  # seed 0's modules: the architecture
+    step: int = 0
 
 
 class EpochDriver:
@@ -88,11 +178,76 @@ class EpochDriver:
             self._prep_cube, self._gather = make_train_gather(
                 config.gather_impl, config.n_pc)
 
+    # -- the parts of a step, per trainer --------------------------------- #
+    def _modules(self, state) -> dict:
+        """The state's trained modules by name."""
+        raise NotImplementedError
+
+    def _opts(self, state) -> tuple:
+        """The state's Adams, in the order they step."""
+        raise NotImplementedError
+
+    def _carry(self, state) -> dict:
+        """What a step reads and writes besides the params (CMLPL's
+        queues), by name."""
+        return {}
+
+    def _draws(self, g, xp_l, x_l, xp_u, x_u, lab_y) -> dict:
+        """Every random draw of a step from generator ``g``, in the step's
+        order, and what is made of them before the forwards (the views):
+        a dict of tensors."""
+        raise NotImplementedError
+
+    def _losses(self, apply: Apply, d: dict, lab_y, carry: dict,
+                epoch: int, batch_index: int, g=None):
+        """The rest of a step on the draws ``d``: (the loss to minimise,
+        its metrics as 0-d tensors, the rows to write into ``carry``).
+        ``g`` is the generator in a serial step, None in a fused one."""
+        raise NotImplementedError
+
+    def _write(self, carry: dict, writes: dict) -> None:
+        """Writes a step's ``writes`` into ``carry``, after the update."""
+
     def _step(self, state, xp_l, x_l, xp_u, x_u, lab_y, epoch: int,
               batch_index: int) -> dict:
         """One optimisation step on the labeled and unlabeled patches and
         spectra; returns its metrics as 0-d device tensors."""
-        raise NotImplementedError
+        g = state.generator
+        d = self._draws(g, xp_l, x_l, xp_u, x_u, lab_y)
+        carry = self._carry(state)
+        loss, metrics, writes = self._losses(
+            Apply(torch.nn.ModuleDict(self._modules(state))), d, lab_y,
+            carry, epoch, batch_index, g)
+        self._update(state, loss, *self._opts(state))
+        self._write(carry, writes)
+        return metrics
+
+    def _multi_step(self, ms: SeedStack, xp_l, x_l, xp_u, x_u, lab_y,
+                    epoch: int, batch_index: int) -> dict:
+        """One step of every seed of ``ms`` on seed-stacked inputs (S, B,
+        ...); returns metrics stacked (S,)."""
+        draws = [self._draws(st.generator, *(a[i] for a in (
+            xp_l, x_l, xp_u, x_u, lab_y))) for i, st in enumerate(ms.states)]
+        # the seed axis next to the last (the channels of an NHWC patch):
+        # the vmapped convolutions fold it into their channels, and there
+        # a (B, H, W, S, C) patch is a channels-last (B, S*C, H, W) view,
+        # no copy, as the serial step's patches are channels-last
+        draws = {k: torch.stack([d[k] for d in draws], dim=-2)
+                 for k in draws[0]}
+        seed_dims = {k: v.dim() - 2 for k, v in draws.items()}
+        queues = {k: (q.feats, q.probs) for k, q in ms.carry.items()}
+
+        def one(params, d, y, qs):
+            carry = {k: QueueState(f, p, ms.carry[k].ptr)
+                     for k, (f, p) in qs.items()}
+            return self._losses(Apply(ms.modules, params), d, y, carry,
+                                epoch, batch_index)
+
+        loss, metrics, writes = vmap(one, in_dims=(0, seed_dims, 0, 0))(
+            ms.params, draws, lab_y, queues)
+        self._update(ms, loss.sum(), *ms.opts)
+        self._write(ms.carry, writes)
+        return metrics
 
     @staticmethod
     def _update(state, loss: torch.Tensor, *opts) -> None:
@@ -109,13 +264,18 @@ class EpochDriver:
              first_batch: int = 0):
         """Steps over (E, N, B) id arrays, epoch ``epochs[e]`` for row e;
         step i of a row has batch index ``first_batch + i``.  Returns
-        (state, metrics stacked (E, N) on the device)."""
+        (state, metrics stacked (E, N) on the device).  For a
+        :class:`SeedStack` the arrays are (S, E, N, B), one row a seed, and
+        the metrics (S, E, N)."""
         cfg = self.config
         dev = self.device
         cast = self.cast
         w, cols = cfg.patch_size, scene.cols
+        multi = isinstance(state, SeedStack)
+        if not multi:
+            li, ly, ui = (np.asarray(a)[None] for a in (li, ly, ui))
         if cfg.gather_impl == "pool":
-            pool, li, ui = poolify_batches(li, ui)
+            pool, li, ui = seed_pools(li, ui)
             xp_src, x_src = gather_pool(
                 cast(scene.padded_pca), scene.spectra,
                 torch.from_numpy(pool).to(dev), cols=cols, w=w)
@@ -130,24 +290,42 @@ class EpochDriver:
             def gather_xp(src, ids):
                 return cast(self._gather(src, ids, cols, w))
 
+        def gather_x(src, ids):
+            return src.index_select(0, ids)
+
         li, ui = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
                   for a in (li, ui))
         ly = torch.from_numpy(np.asarray(ly, np.int64)).to(dev)
+        seeds = li.shape[0]
+
+        def batch(gather, src, ids):
+            # the seeds' rows in one gather, then a leading seed axis
+            out = gather(src, ids.reshape(-1))
+            return out.view(seeds, -1, *out.shape[1:])
+
         rows = []
         with compute_precision("float32"):
             for e, epoch in enumerate(epochs):
                 row = []
-                for i in range(li.shape[1]):
-                    lab, unl = li[e, i], ui[e, i]
-                    row.append(self._step(
-                        state, gather_xp(xp_src, lab),
-                        x_src.index_select(0, lab), gather_xp(xp_src, unl),
-                        x_src.index_select(0, unl), ly[e, i], epoch,
-                        first_batch + i))
+                for i in range(li.shape[2]):
+                    lab, unl = li[:, e, i], ui[:, e, i]
+                    inputs = (batch(gather_xp, xp_src, lab),
+                              batch(gather_x, x_src, lab),
+                              batch(gather_xp, xp_src, unl),
+                              batch(gather_x, x_src, unl), ly[:, e, i])
+                    if multi:
+                        row.append(self._multi_step(
+                            state, *inputs, epoch, first_batch + i))
+                    else:
+                        row.append(self._step(
+                            state, *(a[0] for a in inputs), epoch,
+                            first_batch + i))
                 rows.append(row)
-        return state, {k: torch.stack([torch.stack([m[k] for m in row])
-                                       for row in rows])
-                       for k in rows[0][0]}
+        metrics = {k: torch.stack([torch.stack([m[k] for m in row])
+                                   for row in rows]) for k in rows[0][0]}
+        if multi:
+            metrics = {k: v.movedim(-1, 0) for k, v in metrics.items()}
+        return state, metrics
 
     # ------------------------------------------------------------------ #
     def train_step(self, state, scene: PreparedScene, lab_idx, lab_y,
@@ -177,6 +355,95 @@ class EpochDriver:
         li, ly, ui = stack_schedule(sampler, self.config.num_epochs)
         return self._run(state, scene, li, ly, ui,
                          range(self.config.num_epochs))
+
+    # -- fused multi-seed runs -------------------------------------------- #
+    def named_params(self, state) -> dict:
+        """The state's parameters by full name (``"<module>.<param>"``)."""
+        return {f"{m}.{n}": p for m, mod in self._modules(state).items()
+                for n, p in mod.named_parameters()}
+
+    def stack_states(self, states) -> SeedStack:
+        """The seeds' ``states`` as one :class:`SeedStack`: stacked copies
+        of their params, Adam moments (where a state has them) and
+        carried tensors; all must be at the same step."""
+        if len({st.step for st in states}) != 1:
+            raise ValueError("the seeds' states are at different steps")
+        named = [self.named_params(st) for st in states]
+        params = {n: torch.stack([p[n].detach() for p in named])
+                  .requires_grad_(True) for n in named[0]}
+        name_of = {id(p): n for n, p in named[0].items()}
+        opts = []
+        for k, opt0 in enumerate(self._opts(states[0])):
+            keys = [name_of[id(p)] for group in opt0.param_groups
+                    for p in group["params"]]
+            opt = torch.optim.Adam([params[n] for n in keys],
+                                   **opt0.defaults)
+            for n in keys:
+                moments = [self._opts(st)[k].state.get(nm[n])
+                           for st, nm in zip(states, named)]
+                if moments[0]:
+                    opt.state[params[n]] = {
+                        "step": moments[0]["step"].clone(),
+                        **{m: torch.stack([mo[m] for mo in moments])
+                           for m in ("exp_avg", "exp_avg_sq")}}
+            opts.append(opt)
+        carries = [self._carry(st) for st in states]
+        carry = {k: QueueState(torch.stack([c[k].feats for c in carries]),
+                               torch.stack([c[k].probs for c in carries]),
+                               q.ptr) for k, q in carries[0].items()}
+        return SeedStack(list(states), params, opts, carry,
+                         torch.nn.ModuleDict(self._modules(states[0])),
+                         states[0].step)
+
+    @torch.no_grad()
+    def unstack(self, ms: SeedStack) -> list:
+        """Writes ``ms`` back into its seeds' states and returns them: seed
+        i's params, Adam moments, carried tensors and step."""
+        for i, st in enumerate(ms.states):
+            named = self.named_params(st)
+            name_of = {id(p): n for n, p in named.items()}
+            for n, p in named.items():
+                p.copy_(ms.params[n][i])
+            for opt, sopt in zip(ms.opts, self._opts(st)):
+                for group in sopt.param_groups:
+                    for p in group["params"]:
+                        mo = opt.state.get(ms.params[name_of[id(p)]])
+                        if mo:
+                            sopt.state[p] = {
+                                "step": mo["step"].clone(),
+                                "exp_avg": mo["exp_avg"][i].clone(),
+                                "exp_avg_sq": mo["exp_avg_sq"][i].clone()}
+            for k, q in self._carry(st).items():
+                q.feats.copy_(ms.carry[k].feats[i])
+                q.probs.copy_(ms.carry[k].probs[i])
+                q.ptr = ms.carry[k].ptr
+            st.step = ms.step
+        return ms.states
+
+    def _check_fusable(self) -> None:
+        """Raises NotImplementedError for what a fused run cannot replay."""
+
+    def train_multi_run(self, seed, scene: PreparedScene, sampler,
+                        num_iters: int, states=None):
+        """ALL ``num_iters`` runs as ONE step loop over seed-stacked states
+        (:class:`SeedStack`), equal to the serial CLI loop within the
+        rounding of the batched convolutions and products: seed i starts
+        from ``init_state((seed, i))`` (or ``states[i]``, when given), the
+        schedules are drawn iter-major from the one host sampler (seed 0's
+        whole schedule first), and each seed's draws come from its own
+        generator in the serial step's order.  Returns (the seeds' states,
+        in order; metrics stacked (S, E, N))."""
+        self._check_fusable()
+        if states is None:
+            states = [self.init_state((seed, i)) for i in range(num_iters)]
+        if len(states) != num_iters:
+            raise ValueError(f"{len(states)} states for {num_iters} runs")
+        scheds = [stack_schedule(sampler, self.config.num_epochs)
+                  for _ in range(num_iters)]
+        li, ly, ui = (np.stack([s[j] for s in scheds]) for j in range(3))
+        ms, metrics = self._run(self.stack_states(states), scene, li, ly,
+                                ui, range(self.config.num_epochs))
+        return self.unstack(ms), metrics
 
     def fit(self, state, scene, sampler, *, log_every: int = 10,
             log_fn=print, start_epoch: int = 0, on_epoch_end=None):
@@ -246,3 +513,37 @@ class TwoNetDriver(EpochDriver):
         return self.new_state(init_basenet2_params(k_b, **shape),
                               init_basenet2_params(k_e, **shape),
                               int(k_run.generate_state(1)[0]))
+
+    def _modules(self, state) -> dict:
+        return {"net_b": state.net_b.model, "net_e": state.net_e.model}
+
+    def _opts(self, state) -> tuple:
+        return state.net_b.opt, state.net_e.opt
+
+    def _views(self, g, xp_l, x_l, xp_u, x_u) -> dict:
+        """The four noise views (net B patches/spectra, net E
+        patches/spectra), then net B's and net E's dropout masks, the
+        order in which two forwards would draw them."""
+        cfg = self.config
+        xp_b, x_b, xp_e, x_e = two_net_views(
+            self.noisy, cfg.noise_fused, g, xp_l, x_l, xp_u, x_u)
+        d = {"xp_b": xp_b, "x_b": x_b, "xp_e": xp_e, "x_e": x_e}
+        if 0 < cfg.dropout < 1:
+            shape = (xp_b.shape[0], joint_dim(cfg.patch_size))
+            d["keep_b"], d["keep_e"] = (
+                keep_mask(shape, cfg.dropout, g, xp_b.device)
+                for _ in range(2))
+        return d
+
+    def _forwards(self, apply: Apply, d: dict):
+        """((logits, feat) of net B, of net E) on the views of ``d``: two
+        forwards, or one stacked forward (``stack_nets``)."""
+        keep_b, keep_e = d.get("keep_b"), d.get("keep_e")
+        if not self.config.stack_nets:
+            return (apply("net_b", d["xp_b"], d["x_b"], keep=keep_b),
+                    apply("net_e", d["xp_e"], d["x_e"], keep=keep_e))
+        keeps = None if keep_b is None else torch.stack([keep_b, keep_e])
+        logits, feat = apply.stacked(("net_b", "net_e"),
+                                     (d["xp_b"], d["xp_e"]),
+                                     (d["x_b"], d["x_e"]), keeps)
+        return (logits[0], feat[0]), (logits[1], feat[1])

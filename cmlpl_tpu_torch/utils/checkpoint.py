@@ -66,20 +66,42 @@ def save_checkpoint(directory: str, trainer, state,
     return path
 
 
+def checkpoint_path(directory: str, step: int | None = None) -> str:
+    """``<directory>/<step>/``, the largest numeric step by default;
+    FileNotFoundError when there is none."""
+    directory = os.path.abspath(directory)
+    if step is None:
+        steps = ([int(d) for d in os.listdir(directory) if d.isdigit()]
+                 if os.path.isdir(directory) else [])
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        step = max(steps)
+    return os.path.join(directory, str(step))
+
+
 def restore_checkpoint(directory: str, trainer, step: int | None = None):
     """The state of ``trainer`` saved under ``<directory>/<step>/``, the
     largest numeric step by default; FileNotFoundError when there is
     none."""
-    directory = os.path.abspath(directory)
-    if step is None:
-        steps = [int(d) for d in os.listdir(directory) if d.isdigit()]
-        if not steps:
-            raise FileNotFoundError(f"no checkpoints under {directory}")
-        step = max(steps)
-    path = os.path.join(directory, str(step))
+    path = checkpoint_path(directory, step)
     state = trainer.state_from_jax(
         _Node(load_params_npz(os.path.join(path, STATE_FILE))))
     gen = os.path.join(path, GENERATOR_FILE)
     if os.path.exists(gen):
         state.generator.set_state(torch.from_numpy(np.load(gen)))
     return state
+
+
+def load_net_params(directory: str, net: str, step: int | None = None):
+    """One net's params (``"b"`` or ``"e"``) from the latest checkpoint of
+    a two-net trainer (CMLPL, CPS) under ``directory``: the
+    ``net_<net>/params`` subtree of its ``state.npz``, the flax tree that
+    ``state_dict_from_jax`` reads.  Nothing else of the state is built:
+    a map needs neither the Adam moments nor the generator."""
+    path = checkpoint_path(directory, step)
+    tree = load_params_npz(os.path.join(path, STATE_FILE))
+    key = f"net_{net}"
+    if key not in tree:
+        raise KeyError(f"{path} holds no {key}: not a checkpoint of a "
+                       f"two-net trainer (its keys: {sorted(tree)})")
+    return tree[key]["params"]
