@@ -42,15 +42,23 @@ bound and the library call's time; three
 supervised steps of each of the nine ``ZOO`` models
 on the card against the CPU; ``cli.train_backbone`` for each, 100 epochs
 at its defaults; and each model's mean OA against the JAX package's bank
-(``docs/zoo_jax_seeds.json``).  Every phase prints one JSON line; the
-card's name and power limit, then a ``kernels`` line (launches on the main
-path, error, times, bounds, launch plans and B = 1 floors) come before the
-last line, ``{"ok": true, "device": {...}}``.  Any failed check raises,
+(``docs/zoo_jax_seeds.json``).  Then export, in a process of its own:
+``cli.export_model --verify --native_dir`` of the serving model's f32
+``xla`` and ``dense`` maps and its bf16 ``xla`` map, each zip artifact's
+map bitwise its ``ScenePredictor`` map (the f32 ``xla`` one also the
+kernel-1 map that ``--verify`` launches), and the native runner
+(``native/aoti_host.cpp``, built by ``g++`` in a thread from the start)
+one-shot on each bundle and in ``--serve`` with a bad request.  Every
+phase prints one JSON line, with ``at_s``, its process's seconds since it
+started; the card's name and power limit, then a ``kernels`` line
+(launches on the main path, error, times, bounds, launch plans and B = 1
+floors) come before the last line, ``{"ok": true, "device": {...}}``.  Any failed check raises,
 and the script exits non-zero without that line; so it does without CUDA.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import csv
 import ctypes
@@ -66,6 +74,7 @@ import time
 import numpy as np
 import torch
 
+T_IMPORT = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 DATA_ID, N_PC, W, TILE = 1, 60, 20, 512     # PaviaU width
@@ -159,7 +168,9 @@ def require(cond, what: str) -> None:
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with this process's seconds since it started."""
+    print(json.dumps({**obj, "at_s": time.perf_counter() - T_IMPORT}),
+          flush=True)
 
 
 def card_name_and_power() -> str:
@@ -2230,6 +2241,234 @@ def fused_pool_kernels(tscene, seeds: int, epochs: int) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------
+# slice 8: export (cli.export_model, the native runner aoti_host)
+# --------------------------------------------------------------------------
+
+EXPORT_RUNS = (("xla", []), ("dense", ["--eval_gather", "dense"]),
+               ("bf16", ["--compute_dtype", "bfloat16"]))
+SERVE_REPEAT = 5
+
+
+def export_cli(argv, counter_fn) -> dict:
+    """``cli.export_model`` on ``argv`` with the gather counts reset: its
+    printed times, the bundle's MB and the launches its ``--verify`` made."""
+    from cmlpl_tpu_torch.cli import export_model
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    _, lines, _ = run_cli(export_model.main, argv, counter_fn)
+    text = "\n".join(lines)
+
+    def num(pattern):
+        found = re.search(pattern, text)
+        require(found is not None, f"export_model printed no {pattern!r}: "
+                f"{lines}")
+        return float(found.group(1))
+
+    require(num(r"agreement vs in-process predictor: ([0-9.]+)") == 1.0,
+            f"export_model --verify: {lines}")
+    return {"export_s": num(r"compute_dtype=\w+ in ([0-9.]+)s"),
+            "aoti_compile_s": num(r"compiled in ([0-9.]+)s"),
+            "bundle_mb": num(r"model\.pt2 ([0-9.]+) MB"),
+            "verify_artifact_s":
+            num(r"artifact inference time == ([0-9.]+)s"),
+            "verify_launches": dict(zip(("gather_patches_f32",
+                                         "gather_patches_bf16"),
+                                        counter_fn()))}
+
+
+def serve_session(host, bundle, good, bad_cube, spectra, tmp):
+    """``aoti_host --serve``: three good requests and one bad (a cube of
+    another shape), the bad one third, then a blank line; returns (the
+    responses, the labels of each good request)."""
+    outs = [os.path.join(tmp, f"serve{i}.npy") for i in range(4)]
+    reqs = [f"{good} {spectra} {outs[0]}", f"{good} {spectra} {outs[1]}",
+            f"{bad_cube} {spectra} {outs[2]}", f"{good} {spectra} {outs[3]}"]
+    proc = subprocess.run([host, "--bundle", bundle, "--serve"],
+                          input="\n".join(reqs) + "\n\n", capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.splitlines()
+    require(proc.returncode == 0 and len(lines) == 4,
+            f"aoti_host --serve: rc {proc.returncode}, {lines}, "
+            f"{proc.stderr[-2000:]}")
+    require([ln.split()[0] for ln in lines] == ["ok", "ok", "error", "ok"],
+            f"aoti_host --serve answered {lines}")
+    require("shape" in lines[2], f"the bad request's answer: {lines[2]}")
+    return lines, [np.load(outs[i]) for i in (0, 1, 3)]
+
+
+def run_export(tmp, host_build_s: float) -> dict:
+    """The export phase at PaviaU width with the smoke's weights:
+    ``cli.export_model --verify --native_dir`` in ``xla`` and ``dense`` (f32)
+    and ``xla`` with ``--compute_dtype bfloat16``; each zip artifact's map
+    bitwise the in-process ``ScenePredictor``'s of its mode, and the f32
+    ``xla`` one bitwise the kernel-1 map (``--verify`` under ``auto``, 406
+    launches counted); the runner one-shot on each bundle (``--repeat
+    5``), its f32 labels tie-safe to the kernel map (dense: to the dense
+    map); a ``--serve`` session.  Returns the phase's kernel-1 launches."""
+    from cmlpl_tpu_torch.cli._common import logits_fn
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.eval.inference import (ScenePredictor,
+                                                dense_scene_logits)
+    from cmlpl_tpu_torch.models.basenet import BaseNet2
+    from cmlpl_tpu_torch.native.aoti_launcher import build_host, run_host
+    from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
+                                                  gather_patches_f32)
+    from cmlpl_tpu_torch.registry import get_dataset
+    from cmlpl_tpu_torch.utils.export import load_exported
+    from cmlpl_tpu_torch.weights import (init_basenet2_params,
+                                         save_params_npz,
+                                         state_dict_from_jax)
+
+    def counter_fn():
+        return (gather_patches_f32.launches, gather_patches_bf16.launches)
+
+    os.makedirs(tmp, exist_ok=True)
+    device = torch.device("cuda")
+    spec = get_dataset(DATA_ID)
+    params = init_basenet2_params(SEED, n_pc=N_PC,
+                                  num_features=spec.num_bands,
+                                  num_classes=spec.num_classes,
+                                  patch_size=W)
+    weights = os.path.join(tmp, "w.npz")
+    save_params_npz(weights, params)
+    cube, gt = synthetic_scene(DATA_ID)
+    scene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                          n_pc=N_PC, device=device)
+    tiles = -(-scene.num_pixels // TILE)
+    models = {}
+    for dtype in ("float32", "bfloat16"):
+        model = BaseNet2(num_features=spec.num_bands,
+                         num_classes=spec.num_classes, n_pc=N_PC,
+                         patch_size=W, compute_dtype=dtype)
+        model.load_state_dict(state_dict_from_jax(params))
+        models[dtype] = model.to(device).eval()
+    apply = logits_fn(models["float32"])
+    common = ["--dataID", str(DATA_ID), "--n_PC", str(N_PC), "--w", str(W),
+              "--val_batch_size", str(TILE), "--weights", weights,
+              "--data_root", tmp]
+    cube_npy = os.path.join(tmp, "cube.npy")
+    spectra_npy = os.path.join(tmp, "spectra.npy")
+    np.save(cube_npy, scene.padded_pca.cpu().numpy())
+    np.save(spectra_npy, scene.spectra.cpu().numpy())
+    bad_npy = os.path.join(tmp, "bad_cube.npy")
+    np.save(bad_npy, scene.padded_pca[:100].cpu().numpy())
+
+    # the in-process maps the artifacts are held to
+    for wrapper in (gather_patches_f32, gather_patches_bf16):
+        wrapper.launches = 0
+    kernel_map = ScenePredictor(apply, patch_size=W, cols=scene.cols,
+                                tile=TILE, gather="pallas")
+    want = {"xla": kernel_map(scene)}
+    require(counter_fn() == (tiles, 0), f"kernel map launches {counter_fn()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel_map(scene)
+    kernel_map_s = time.perf_counter() - t0
+    want["dense"] = ScenePredictor(
+        None, params=models["float32"].state_dict(), patch_size=W,
+        cols=scene.cols, gather="dense")(scene)
+    want["bf16"] = ScenePredictor(
+        logits_fn(models["bfloat16"]), patch_size=W, cols=scene.cols,
+        tile=TILE, gather="xla")(scene)
+    with torch.inference_mode():
+        dense_logits = dense_scene_logits(models["float32"].state_dict(),
+                                          scene).cpu()
+    logits_at = {"xla": tiled_logits(apply, scene),
+                 "dense": lambda ids: dense_logits[torch.from_numpy(ids)]}
+
+    host = build_host()
+    report = {"torch_version": torch.__version__,
+              "runner_build_s": host_build_s, "tiles": tiles,
+              "pallas_map_s": kernel_map_s, "runs": {}}
+    launches = 0    # kernel 1 on the phase's path: each --verify's map
+    for name, extra in EXPORT_RUNS:
+        out = os.path.join(tmp, f"{name}.cmlpl.zip")
+        bundle = os.path.join(tmp, f"bundle_{name}")
+        cli = export_cli(common + extra + ["--out", out, "--verify",
+                                           "--native_dir", bundle],
+                         counter_fn)
+        expect = (0, 0) if name == "dense" else (tiles, 0)
+        require(tuple(cli["verify_launches"].values()) == expect,
+                f"export {name}: --verify launched {cli['verify_launches']}")
+        launches += cli["verify_launches"]["gather_patches_f32"]
+        meta, fn = load_exported(out)
+        fn(scene.padded_pca, scene.spectra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(scene.padded_pca, scene.spectra)
+        artifact_s = time.perf_counter() - t0
+        require(got.shape == (scene.num_pixels,) and got.dtype == np.int32,
+                f"export {name}: artifact map {got.shape} {got.dtype}")
+        require(np.array_equal(got, want[name]),
+                f"export {name}: the artifact's map != ScenePredictor's: "
+                f"{int((got != want[name]).sum())} pixels")
+        labels_npy = os.path.join(tmp, f"labels_{name}.npy")
+        native = run_host(bundle, cube_npy, spectra_npy, labels_npy,
+                          repeat=SERVE_REPEAT, timeout=600)
+        labels = np.load(labels_npy)
+        if name in logits_at:
+            tie_safe_equal(labels, want[name], logits_at[name],
+                           f"aoti_host {name} vs the in-process map")
+        run = {"meta": {k: meta[k] for k in ("gather", "tile", "platforms",
+                                             "compute_dtype",
+                                             "torch_version")},
+               **cli, "artifact_map_s": artifact_s,
+               "artifact_equals_in_process_map": True, "runner": native,
+               "runner_differing_pixels":
+               int((labels != want[name]).sum())}
+        if name == "xla":
+            lines, served = serve_session(host, bundle, cube_npy, bad_npy,
+                                          spectra_npy, tmp)
+            require(all(np.array_equal(m, labels) for m in served),
+                    "aoti_host --serve labels != the one-shot labels")
+            run["serve"] = {"responses": lines, "ms_per_request":
+                            [float(ln.split()[-1]) for ln in lines
+                             if ln.startswith("ok ")]}
+        report["runs"][name] = run
+    emit({"phase": "export", "card": card_name_and_power(), **report,
+          "note": "random weights on the synthetic PaviaU-size scene; "
+                  "bf16 runner labels reported, not held (Inductor's bf16 "
+                  "fusions round elsewhere)"})
+    return {"launches": launches}
+
+
+EXPORT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+print(json.dumps(cs.run_export(sys.argv[2], float(sys.argv[3]))), flush=True)
+"""
+
+
+def export_in_child(tmp, host_build_s: float) -> dict:
+    """:func:`run_export` in a new process, its phase line printed here:
+    Inductor's compiles and the runner's processes stay out of this one."""
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, "-c", EXPORT, ROOT, tmp,
+                          str(host_build_s)],
+                         capture_output=True, text=True, timeout=900)
+    result = [ln for ln in out.stdout.splitlines()
+              if ln.startswith('{"launches": ')]
+    for line in out.stdout.splitlines():
+        if line.startswith("{") and line not in result:
+            print(line, flush=True)
+    require(out.returncode == 0 and len(result) == 1,
+            f"the export phase failed: {out.stdout[-2000:]}\n"
+            f"{out.stderr[-4000:]}")
+    return json.loads(result[0])
+
+
+def timed_build(build):
+    """(path, seconds) of ``build()``."""
+    t0 = time.perf_counter()
+    path = build()
+    return path, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2253,11 +2492,17 @@ def main() -> int:
                                          save_params_npz,
                                          state_dict_from_jax)
 
+    from cmlpl_tpu_torch.native.aoti_launcher import build_host
+
     t_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_name_and_power()
     print(card, flush=True)
     flags_at_start = tf32_flags()
+    # the export phase's native runner builds (g++, one core) while the
+    # phases before it run
+    host_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    host_build = host_pool.submit(timed_build, build_host)
 
     # 1. build
     t0 = time.perf_counter()
@@ -2503,7 +2748,15 @@ def main() -> int:
     zoo_kernels, zoo_floors, zoo_launches = run_zoo(
         cube, gt, device, flags_at_start, counter_fn)
 
-    launches = {"patch_gather_f32": serve_launches["gather_patches_f32"],
+    # 7. export (slice 8): the zip artifacts and the native runner's bundles
+    # of the f32 xla, dense and bf16 maps, in a process of their own
+    _, host_build_s = host_build.result()
+    host_pool.shutdown()
+    with tempfile.TemporaryDirectory() as tmp:
+        export = export_in_child(os.path.join(tmp, "export"), host_build_s)
+
+    launches = {"patch_gather_f32": serve_launches["gather_patches_f32"]
+                + export["launches"],
                 "patch_gather_bf16":
                 predict_launches["gather_patches_bf16"]}
     launches_train = {
@@ -2554,15 +2807,20 @@ def main() -> int:
                         "floor": zoo_floors[name],
                         "floor_site": f"B=1 w={FLOOR_SITE[0]} "
                         f"C={FLOOR_SITE[1]}",
+                        "launches_by_path": {
+                            "serve": launches[name] - export["launches"],
+                            "export --verify (auto)": export["launches"]}
+                        if name == "patch_gather_f32" else
+                        {"predict --eval_gather pallas_bf16": launches[name]},
                         "launches_train": launches_train[name],
                         "train_shapes": train_gather[name]
                         | fused["shapes"][name] | zoo_kernels[name]})
     emit({"total_s": time.perf_counter() - t_start, "card": card})
     print(card, flush=True)
-    emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -31,9 +31,17 @@ def compute_precision(compute_dtype: str):
     keep f32 meaning f32; under ``bfloat16`` the layers compute in bf16
     and TF32 is allowed.  The switches are process-global, so a model
     scopes them to its own calls: building or running one leaves every
-    later call as it found it."""
+    later call as it found it.
+
+    While Dynamo traces (the body of a loop operator that ``torch.export``
+    captures), the block sets nothing: no op of a graph records the
+    switches, so whoever traces or runs the graph sets them around it
+    (``utils/export.py``)."""
     if compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    if torch.compiler.is_dynamo_compiling():
+        yield
+        return
     tf32 = compute_dtype == "bfloat16"
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)

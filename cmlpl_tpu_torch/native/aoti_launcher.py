@@ -1,0 +1,124 @@
+"""Build and launch the native serving runner (``aoti_host.cpp``;
+``cmlpl_tpu/native/pjrt_launcher.py:59-213``).
+
+The runner is a C++ program against the installed libtorch.  It is built
+with ``g++`` at first use into ``cmlpl_tpu_torch/_build/`` (git-ignored),
+named by a hash of the source and the flags, so an edited source or
+another torch rebuilds and an unchanged one is found at once.  Include
+paths, the C++ ABI and the libraries come from the installed torch; the
+CUDA libraries are linked when that torch has CUDA.
+
+    python -m cmlpl_tpu_torch.native.aoti_launcher --bundle DIR \
+        --cube cube.npy --spectra spectra.npy --out labels.npy --repeat 5
+"""
+
+from __future__ import annotations
+
+import hashlib
+import inspect
+import json
+import os
+import re
+import subprocess
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_HERE, "aoti_host.cpp")
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+
+_lock = threading.Lock()
+
+
+def _cxx_std() -> str:
+    """The newest ``-std=c++NN`` that the installed torch builds its own
+    C++ extensions with: the standard its headers are written for."""
+    from torch.utils import cpp_extension
+
+    found = re.findall(r"-std=c\+\+(\d+)", inspect.getsource(cpp_extension))
+    return f"-std=c++{max(found, key=int)}" if found else "-std=c++17"
+
+
+def build_command(out_path: str) -> list[str]:
+    """The ``g++`` command that builds the runner into ``out_path``."""
+    import torch
+
+    root = os.path.dirname(torch.__file__)
+    lib = os.path.join(root, "lib")
+    libs = ["-ltorch", "-ltorch_cpu", "-lc10"]
+    if torch.version.cuda is not None:
+        libs += ["-ltorch_cuda", "-lc10_cuda"]
+    return ["g++", "-O2", _cxx_std(), "-fPIC",
+            f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            "-I", os.path.join(root, "include"),
+            "-I", os.path.join(root, "include", "torch", "csrc", "api",
+                               "include"),
+            SRC, "-o", out_path, "-L", lib, f"-Wl,-rpath,{lib}",
+            # keep libtorch_cuda though no symbol of it is named: loading it
+            # registers the CUDA backend
+            "-Wl,--no-as-needed", *libs]
+
+
+def _host_path() -> str:
+    h = hashlib.sha256(" ".join(build_command("")).encode())
+    with open(SRC, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"aoti_host_{h.hexdigest()[:16]}")
+
+
+def build_host(force: bool = False) -> str:
+    """Build the runner if its binary is missing (or ``force``); returns its
+    path.  Raises RuntimeError with the compiler's output on failure."""
+    path = _host_path()
+    with _lock:
+        if os.path.exists(path) and not force:
+            return path
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            proc = subprocess.run(build_command(tmp), capture_output=True,
+                                  text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError(f"cannot build {SRC}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}) building "
+                               f"{SRC}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, path)
+        return path
+
+
+def run_host(bundle: str, cube_npy: str, spectra_npy: str, out_npy: str,
+             *, repeat: int = 1, device: str = "cuda",
+             timeout: float | None = None) -> dict:
+    """One-shot native inference: the runner's JSON line (``load_ms``,
+    ``run_ms_min``, ``run_ms_mean``, ``repeat``) as a dict.  Raises
+    RuntimeError with the runner's errors when it fails."""
+    cmd = [build_host(), "--bundle", bundle, "--cube", cube_npy,
+           "--spectra", spectra_npy, "--out", out_npy, "--repeat",
+           str(repeat), "--device", device]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"aoti_host failed ({proc.returncode}):\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--bundle", required=True)
+    p.add_argument("--cube", required=True)
+    p.add_argument("--spectra", required=True)
+    p.add_argument("--out", default="labels.npy")
+    p.add_argument("--repeat", type=int, default=1)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = p.parse_args(argv)
+    result = run_host(args.bundle, args.cube, args.spectra, args.out,
+                      repeat=args.repeat, device=args.device)
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()
