@@ -48,7 +48,15 @@ at its defaults; and each model's mean OA against the JAX package's bank
 map bitwise its ``ScenePredictor`` map (the f32 ``xla`` one also the
 kernel-1 map that ``--verify`` launches), and the native runner
 (``native/aoti_host.cpp``, built by ``g++`` in a thread from the start)
-one-shot on each bundle and in ``--serve`` with a bad request.  Every
+one-shot on each bundle and in ``--serve`` with a bad request.  Then the
+training-run bundle: ``cli.export_model --train_bundle`` of the default
+20-epoch f32 CMLPL run, exported and compiled in a process of its own
+started with the smoke, which then holds one noise-off epoch of the
+exported program (``.module()``) to the eager trainer on the card and
+threefry2x32 on the card to the CPU; the bundle run by the runner
+(``--inputs --outdir``) and in Python, the two held to each other, its
+outputs imported (``--import_run``) and mapped by ``predict
+--checkpoint_dir``, the map's OA held to the eager run's.  Every
 phase prints one JSON line, with ``at_s``, its process's seconds since it
 started; the card's name and power limit, then a ``kernels`` line
 (launches on the main path, error, times, bounds, launch plans and B = 1
@@ -58,6 +66,7 @@ and the script exits non-zero without that line; so it does without CUDA.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import csv
@@ -66,6 +75,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -988,7 +998,8 @@ def accuracy(acc) -> dict:
 
 def phase_train(tmp, cube, tscene, counter_fn):
     """cli.train.main at full width with its default pool gather, a
-    profiled window of its steps, and serve with the written weights."""
+    profiled window of its steps, and serve with the written weights.
+    Returns (its training launches, its net B OA and ms_per_step)."""
     from cmlpl_tpu_torch.cli import serve
     from cmlpl_tpu_torch.cli import train as cli_train
     from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
@@ -1035,7 +1046,7 @@ def phase_train(tmp, cube, tscene, counter_fn):
           "profiled_window": window,
           "note": "synthetic PaviaU-size scene substituted for the absent "
                   ".mat; OA says the run learns, not how well on PaviaU"})
-    return launches
+    return launches, {"oa": acc_b.oa, "ms_per_step": report["ms_per_step"]}
 
 
 def phase_train_algo(tmp, tscene, counter_fn, algo: str):
@@ -2462,6 +2473,392 @@ def export_in_child(tmp, host_build_s: float) -> dict:
     return json.loads(result[0])
 
 
+# --------------------------------------------------------------------------
+# slice 9: the training-run bundle
+# --------------------------------------------------------------------------
+
+BUNDLE_STEPS = TRAIN_EPOCHS * 78
+# the bundle's map may lose at most this many OA points to the eager run's
+# (the same initial state and schedule, other random streams: the two
+# runs are equal in distribution only)
+BUNDLE_OA_SLACK = 0.01
+
+
+class FirstBatch:
+    """A sampler whose every epoch is the first batch of ``sampler``'s."""
+
+    def __init__(self, sampler):
+        self.batch = next(iter(sampler.epoch()))
+
+    def epoch(self):
+        yield self.batch
+
+
+def bundle_vs_eager_epoch(tscene) -> dict:
+    """(a) One epoch of CMLPL with noise and dropout off, from one state:
+    the exported run program, run by ``.module()`` on the card (no
+    AOTInductor compile), against the eager ``CMLPLTrainer`` on the card,
+    under the card's f32 step bounds (``require_f32_steps``,
+    ``param_gap``) over the 78 steps.  The program returns no gradients,
+    so the step-1 gradients are the bias-corrected first moments (Adam's
+    running mean of the gradients; after one step, the gradient) of a
+    one-step program of the same builder on the epoch's first batch,
+    against the eager trainer's one step; each weight's gradient RMS
+    comes from its second moment after the 78 steps.  The first moments
+    after 78 steps are reported, not held: cuDNN's weight-gradient sums
+    change order from run to run, so two eager runs from one state part
+    there by as much as the step-1 bound: a second eager run reports that
+    floor beside the program's gap."""
+    from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.device import compute_precision
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.functional import StateLayout
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+    from cmlpl_tpu_torch.utils.export import build_run_exported
+
+    device = torch.device("cuda")
+    cfg = CMLPLConfig(noise=0.0, dropout=0.0, num_epochs=1,
+                      gather_impl="pool")
+    trainer = CMLPLTrainer(cfg, device=device)
+    labels = tscene.labels
+    splits = generate_splits(labels, num_label=5)
+
+    def sampler():
+        return SemiSupervisedSampler(splits, labels, 128, 128, 10000,
+                                     seed=1088)
+
+    def program_run(smp):
+        t0 = time.perf_counter()
+        meta, exported, inputs = build_run_exported(trainer, tscene, smp,
+                                                    (SEED, 0))
+        export_s = time.perf_counter() - t0
+        args = [torch.from_numpy(np.array(v)).to(device)
+                for v in inputs.values()]
+        program = exported.module()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with compute_precision(meta["compute_dtype"]):
+            outs = program(*args)
+        torch.cuda.synchronize()
+        return ({n: o.cpu() for n, o in zip(meta["output_names"], outs)},
+                export_s, time.perf_counter() - t0)
+
+    def eager_run(smp):
+        state = trainer.init_state((SEED, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_run(state, tscene, smp)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        layout = StateLayout(trainer, state, np.zeros(2, np.uint32))
+        return (layout.leaves,
+                {lf.name: torch.from_numpy(np.asarray(v))
+                 for lf, v in zip(layout.leaves, layout.values)},
+                metrics, run_s)
+
+    got, export_s, module_s = program_run(sampler())
+    leaves, want, metrics, eager_s = eager_run(sampler())
+    _, again, _, _ = eager_run(sampler())
+    got1, export1_s, _ = program_run(FirstBatch(sampler()))
+    _, want1, _, _ = eager_run(FirstBatch(sampler()))
+    mc = {k[len("metrics."):]: v.numpy().reshape(-1)
+          for k, v in got.items() if k.startswith("metrics.")}
+    mh = {k: v.cpu().numpy().reshape(-1) for k, v in metrics.items()}
+    require(sorted(mc) == sorted(mh), f"metrics {sorted(mc)} vs {sorted(mh)}")
+    for k in mc:
+        require(np.all(np.isfinite(mc[k])), f"bundle metric {k} not finite")
+
+    params = [lf for lf in leaves if lf.kind == "param"]
+
+    def opt(lf, side, kind):
+        net = lf.name.split(".")[1]
+        rest = lf.name.split(".params.", 1)[1]
+        count = float(side[f"state.{net}.opt_state.0.count"])
+        return side[f"state.{net}.opt_state.0.{kind}.{rest}"], count
+
+    def grad(lf, side):
+        mu, count = opt(lf, side, "mu")
+        return mu / (1 - 0.9 ** count)
+
+    def rms(lf, side):
+        nu, count = opt(lf, side, "nu")
+        return (nu / (1 - 0.999 ** count)).sqrt()
+
+    require(all(float(s[f"state.{n}.opt_state.0.count"]) == 1
+                for s in (got1, want1) for n in ("net_b", "net_e")),
+            "the one-step runs took another number of steps")
+    gc = [grad(lf, got1) for lf in params]
+    gh = [grad(lf, want1) for lf in params]
+    grad_err = grad_gap(gc, gh)
+    pc = [got[lf.name] for lf in params]
+    ph = [want[lf.name] for lf in params]
+    param_err, held = param_gap(
+        [(a - b).abs().max() for a, b in zip(gc, gh)], pc, ph,
+        [rms(lf, want) for lf in params], [rms(lf, got) for lf in params],
+        1, cfg.lr)
+    loss_err = {k: float(np.abs(mc[k] - mh[k]).max()) for k in mc}
+    report = {"phase": "train_bundle_vs_eager", "steps": 78,
+              "noise": 0.0, "dropout": 0.0, "export_s": export_s,
+              "one_step_export_s": export1_s,
+              "module_run_s": module_s, "eager_run_s": eager_s,
+              "max_abs_diff": loss_err,
+              "step1_grad_max_diff_of_tensor_max": grad_err,
+              "step1_grads_bitwise": all(torch.equal(a, b)
+                                         for a, b in zip(gc, gh)),
+              "first_moment_max_diff_of_tensor_max": grad_gap(
+                  [grad(lf, got) for lf in params],
+                  [grad(lf, want) for lf in params]),
+              "eager_vs_eager_first_moment_max_diff_of_tensor_max":
+              grad_gap([grad(lf, again) for lf in params],
+                       [grad(lf, want) for lf in params]),
+              "eager_vs_eager_params_max_abs_diff": max(
+                  float((again[lf.name] - want[lf.name]).abs().max())
+                  for lf in params),
+              "params_max_abs_diff": param_err,
+              "bitwise_params": all(torch.equal(a, b)
+                                    for a, b in zip(pc, ph))}
+    emit(report)
+    require_f32_steps("train bundle .module() vs eager, 78 steps", mc, mh,
+                      grad_err, param_err, held, 1, cfg.lr, 78)
+    return report
+
+
+def threefry_card_vs_cpu() -> dict:
+    """(d) The counter stream's block on the card equals the CPU's, bit
+    for bit, for a fixed key over 2**20 counter pairs."""
+    from cmlpl_tpu_torch.core.rng import threefry2x32
+
+    x = torch.arange(1 << 20, dtype=torch.int64)
+    key = (0x12345678, 0x9ABCDEF0)
+    cpu = threefry2x32(*(torch.tensor(k) for k in key), x,
+                       (x * 2654435761) & 0xFFFFFFFF)
+    xc = x.cuda()
+    card = threefry2x32(*(torch.tensor(k, device="cuda") for k in key), xc,
+                        (xc * 2654435761) & 0xFFFFFFFF)
+    equal = all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))
+    report = {"phase": "train_bundle_threefry", "counters": 1 << 20,
+              "card_equals_cpu": equal}
+    emit(report)
+    require(equal, "threefry2x32 on the card != on the CPU")
+    return report
+
+
+def run_train_bundle_child(tmp) -> dict:
+    """The training bundle's build, in a process of its own started with
+    the smoke: (b) ``cli.export_model --train_bundle`` of the default
+    20-epoch f32 CMLPL run at PaviaU width (its export and AOTInductor
+    compile), then (a) :func:`bundle_vs_eager_epoch` and (d)
+    :func:`threefry_card_vs_cpu`.  Returns the bundle's path and the
+    export's numbers."""
+    from cmlpl_tpu_torch.cli import export_model
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+
+    bundle = os.path.join(tmp, "bundle")
+    t0 = time.perf_counter()
+    _, lines, _ = run_cli(export_model.main, [
+        "--dataID", str(DATA_ID), "--data_root", tmp, "--train_bundle",
+        bundle], lambda: (0, 0))
+    wall_s = time.perf_counter() - t0
+    text = "\n".join(lines)
+    found = re.search(
+        r"([0-9.]+) MB AOTInductor package, (\d+) inputs \(([0-9.]+) MB\), "
+        r"(\d+) outputs, platforms=\['cuda'\] export_s=([0-9.]+) "
+        r"aoti_compile_s=([0-9.]+)", text)
+    require(found is not None, f"export_model --train_bundle: {lines}")
+    export = {"bundle_mb": float(found.group(1)),
+              "inputs": int(found.group(2)),
+              "inputs_mb": float(found.group(3)),
+              "outputs": int(found.group(4)),
+              "export_s": float(found.group(5)),
+              "aoti_compile_s": float(found.group(6)), "cli_wall_s": wall_s}
+    for name in ("model.pt2", "signature.txt", "meta.json", "inputs"):
+        require(os.path.exists(os.path.join(bundle, name)),
+                f"the bundle has no {name}")
+    emit({"phase": "train_bundle_export", **export})
+    cube, gt = synthetic_scene(DATA_ID)
+    tscene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                           n_pc=N_PC, device=torch.device("cuda"))
+    epoch = bundle_vs_eager_epoch(tscene)
+    bits = threefry_card_vs_cpu()
+    return {"bundle": bundle, "export": export,
+            "vs_eager_bitwise_params": epoch["bitwise_params"],
+            "threefry_card_equals_cpu": bits["card_equals_cpu"]}
+
+
+TRAIN_BUNDLE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+print(json.dumps({"train_bundle": cs.run_train_bundle_child(sys.argv[2])}),
+      flush=True)
+"""
+
+
+def start_train_bundle_child(tmp):
+    """:func:`run_train_bundle_child` started in a new process at a lower
+    priority and with 4 compile workers, so the first AOTInductor compile
+    of the training program (minutes) runs beside the phases before it
+    and leaves them most of the host; its output goes to files in
+    ``tmp``."""
+    out = open(os.path.join(tmp, "child.out"), "w")
+    err = open(os.path.join(tmp, "child.err"), "w")
+    env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="4")
+    proc = subprocess.Popen(["nice", "-n", "10", sys.executable, "-c",
+                             TRAIN_BUNDLE, ROOT, tmp], stdout=out,
+                            stderr=err, env=env, text=True)
+    out.close()
+    err.close()
+    return proc
+
+
+def finish_train_bundle_child(proc, tmp) -> dict:
+    """Waits for the child (at most 900 s more), prints its phase lines and
+    returns its result."""
+    rc = proc.wait(timeout=900)
+    with open(os.path.join(tmp, "child.out")) as f:
+        lines = f.read().splitlines()
+    result = [ln for ln in lines if ln.startswith('{"train_bundle": ')]
+    for line in lines:
+        if line.startswith("{") and line not in result:
+            print(line, flush=True)
+    with open(os.path.join(tmp, "child.err")) as f:
+        err = f.read()
+    require(rc == 0 and len(result) == 1,
+            f"the train_bundle child failed (rc {rc}): {lines[-5:]}\n"
+            f"{err[-4000:]}")
+    return json.loads(result[0])["train_bundle"]
+
+
+def phase_train_bundle(child: dict, tmp, eager: dict, counter_fn) -> dict:
+    """(b) The 20-epoch bundle run by the C++ runner (``--inputs
+    --outdir``, twice) and by ``torch._inductor.aoti_load_package`` in
+    Python; (c) ``--import_run`` of the runner's outputs and ``predict
+    --checkpoint_dir --net b`` of the checkpoint, whose OA may be at most
+    ``BUNDLE_OA_SLACK`` below the eager ``cli.train`` run's (``eager``:
+    its OA and ``ms_per_step``).  The two runs of one package are held
+    bitwise or, where cuDNN's run-to-run rounding parts them (its weight-
+    gradient sums change order; Adam carries it through 1,560 steps),
+    step 0's metrics within the card-vs-CPU loss bounds and the Python
+    run's map at the same OA bound.  Returns the map's kernel-1 launches."""
+    import torch._inductor
+
+    from cmlpl_tpu_torch.cli import export_model
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.device import compute_precision
+    from cmlpl_tpu_torch.eval.metrics import cal_accuracy
+    from cmlpl_tpu_torch.native.aoti_launcher import run_host_io
+
+    bundle = child["bundle"]
+    with open(os.path.join(bundle, "meta.json")) as f:
+        meta = json.load(f)
+    require(meta["kind"] == "train_run" and meta["num_epochs"]
+            * meta["batches_per_epoch"] == BUNDLE_STEPS, f"meta {meta}")
+    out_runner = os.path.join(tmp, "runner_out")
+    runner = run_host_io(bundle, os.path.join(bundle, "inputs"), out_runner,
+                         repeat=2, timeout=900)
+    require(runner["num_inputs"] == len(meta["input_names"])
+            and runner["num_outputs"] == len(meta["output_names"]),
+            f"runner {runner}")
+
+    package = torch._inductor.aoti_load_package(
+        os.path.join(bundle, "model.pt2"))
+    args = [torch.from_numpy(np.load(os.path.join(
+        bundle, "inputs", n + ".npy"))).cuda() for n in meta["input_names"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with compute_precision(meta["compute_dtype"]):
+        outs = package(*args)
+    py = {n: o.cpu().numpy() for n, o in zip(meta["output_names"], outs)}
+    python_ms = (time.perf_counter() - t0) * 1e3
+    del package, args, outs
+    cpp = {n: np.load(os.path.join(out_runner, n + ".npy"))
+           for n in meta["output_names"]}
+    for n in meta["output_names"]:
+        require(np.all(np.isfinite(cpp[n])), f"runner output {n} not finite")
+    differ = [n for n in meta["output_names"]
+              if not np.array_equal(cpp[n], py[n])]
+    metric_names = [n for n in meta["output_names"]
+                    if n.startswith("metrics.")]
+    # where the two runs part: a step of one program from one state agrees
+    # to rounding; the steps after it carry cuDNN's run-to-run rounding
+    # (its weight-gradient sums change order) through 1,560 Adam steps
+    first_diff = {}
+    for n in metric_names:
+        at = np.flatnonzero((cpp[n] != py[n]).reshape(-1))
+        first_diff[n] = int(at[0]) if at.size else None
+    step0 = {n: (float(cpp[n].reshape(-1)[0]), float(py[n].reshape(-1)[0]))
+             for n in metric_names}
+
+    ck = os.path.join(tmp, "ckpt")
+    cube, gt = synthetic_scene(DATA_ID)
+    flags = ["--dataID", str(DATA_ID), "--data_root", tmp]
+    labels = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                           n_pc=N_PC, device="cpu").labels
+    splits = generate_splits(labels, num_label=5)
+
+    def import_and_map(outdir, ckpt):
+        run_cli(export_model.main, flags + ["--import_run", bundle, outdir,
+                                            "--checkpoint_dir", ckpt],
+                counter_fn)
+        require(not os.path.exists(os.path.join(
+            ckpt, str(BUNDLE_STEPS), "generator.npy")),
+            "the imported checkpoint holds a generator")
+        pred, launches = predict_map(flags + [
+            "--checkpoint_dir", ckpt, "--net", "b", "--n_PC", str(N_PC),
+            "--w", str(W), "--val_batch_size", str(TILE),
+            "--out", os.path.join(tmp, "bundle_map.svg")], counter_fn)
+        return cal_accuracy(pred[splits.test], labels[splits.test] - 1), \
+            launches
+
+    acc, launches = import_and_map(out_runner, ck)
+    acc_py = None
+    if differ:
+        out_py = os.path.join(tmp, "python_out")
+        os.makedirs(out_py)
+        for n, v in py.items():
+            np.save(os.path.join(out_py, n + ".npy"), v)
+        acc_py, _ = import_and_map(out_py, os.path.join(tmp, "ckpt_py"))
+    hist = {n[len("metrics."):]: cpp[n] for n in metric_names}
+    cls = hist["cls_loss"].mean(axis=1)
+    report = {"phase": "train_bundle", "card": card_name_and_power(),
+              "steps": BUNDLE_STEPS, **child["export"],
+              "runner": runner,
+              "ms_per_step": runner["run_ms_min"] / BUNDLE_STEPS,
+              "python_package_run_ms": python_ms,
+              "eager_cli_train_ms_per_step": eager["ms_per_step"],
+              "runner_vs_python_bitwise": not differ,
+              "runner_vs_python_outputs_differing": len(differ),
+              "runner_vs_python_first_differing_step": first_diff,
+              "runner_vs_python_step0_metrics": step0,
+              "vs_eager_epoch_bitwise_params":
+              child["vs_eager_bitwise_params"],
+              "threefry_card_equals_cpu": child["threefry_card_equals_cpu"],
+              "cls_loss_by_epoch": cls.tolist(),
+              "oa_bundle_net_b": acc.oa,
+              "oa_bundle_python_net_b": None if acc_py is None else acc_py.oa,
+              "oa_eager_net_b": eager["oa"],
+              "predict_launches": launches,
+              "note": "synthetic PaviaU-size scene; ms_per_step is the "
+                      "runner's run_ms_min (inputs' upload to outputs' "
+                      "copy back) over the run's steps"}
+    emit(report)
+    require(launches == (406, 0), f"predict launches {launches}")
+    require(cls[-1] < cls[0], f"bundle cls_loss by epoch {cls}")
+    for n, (a, b) in step0.items():
+        require(np.isclose(a, b, rtol=CARD_CPU_LOSS_RTOL,
+                           atol=CARD_CPU_LOSS_ATOL),
+                f"runner vs Python package, step 0 {n}: {a} vs {b}")
+    for name, a in (("runner", acc), ("Python package", acc_py)):
+        require(a is None or a.oa >= eager["oa"] - BUNDLE_OA_SLACK,
+                f"the bundle's OA by the {name} {a and a.oa} < eager OA "
+                f"{eager['oa']} - {BUNDLE_OA_SLACK}")
+    return {"predict": launches[0]}
+
+
 def timed_build(build):
     """(path, seconds) of ``build()``."""
     t0 = time.perf_counter()
@@ -2503,6 +2900,19 @@ def main() -> int:
     # phases before it run
     host_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     host_build = host_pool.submit(timed_build, build_host)
+
+    # the training bundle's export and first AOTInductor compile (minutes)
+    # run in a process of their own beside the phases before it
+    bundle_tmp = tempfile.mkdtemp(prefix="train_bundle_")
+    bundle_child = start_train_bundle_child(bundle_tmp)
+
+    def stop_bundle_child():
+        if bundle_child.poll() is None:
+            bundle_child.kill()
+            bundle_child.wait()
+        shutil.rmtree(bundle_tmp, ignore_errors=True)
+
+    atexit.register(stop_bundle_child)
 
     # 1. build
     t0 = time.perf_counter()
@@ -2721,8 +3131,9 @@ def main() -> int:
                           f32_grads.pop(algo))
 
     with tempfile.TemporaryDirectory() as tmp:
-        pool_launches = {"cmlpl": phase_train(tmp, cube, tscene,
-                                              counter_fn)}
+        pool_launches = {}
+        pool_launches["cmlpl"], eager_cmlpl = phase_train(tmp, cube, tscene,
+                                                          counter_fn)
         per_step = phase_train_pallas(tmp, counter_fn)
         for algo in ("cps", "cct"):
             pool_launches[algo] = phase_train_algo(tmp, tscene, counter_fn,
@@ -2755,6 +3166,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         export = export_in_child(os.path.join(tmp, "export"), host_build_s)
 
+    # 8. the training-run bundle (slice 9): the 20-epoch CMLPL run as one
+    # program, run by the runner and in Python, imported and mapped
+    child = finish_train_bundle_child(bundle_child, bundle_tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle_launches = phase_train_bundle(child, tmp, eager_cmlpl,
+                                             counter_fn)
+    stop_bundle_child()
+
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"]
                 + export["launches"],
                 "patch_gather_bf16":
@@ -2772,7 +3191,9 @@ def main() -> int:
             "(pool), training": prep["train"],
             "cli.train --num_iters 4 --fused_iters, 2 epochs (one pool for "
             "the 4 seeds), training": fused["fused_f32"],
-            "cli.predict --checkpoint_dir --net b, one map": prep["map"]},
+            "cli.predict --checkpoint_dir --net b, one map": prep["map"],
+            "cli.predict --checkpoint_dir of the imported training-bundle "
+            "run, one map": bundle_launches["predict"]},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
             per_step["pallas_bf16"]["launches_training"][1],

@@ -68,19 +68,35 @@ def _shared_parser() -> argparse.ArgumentParser:
     return p
 
 
-def base_parser() -> argparse.ArgumentParser:
-    """The flags of predict and serve."""
-    p = _shared_parser()
+def _map_source_flags(p: argparse.ArgumentParser,
+                      checkpoint_dir: bool = True) -> None:
     p.add_argument("--weights", type=str, default=None,
                    help="BaseNet2 params as a flat '<layer>/<leaf>' npz in "
                         "the JAX layout (what the training CLIs' "
                         "--weights_out writes); or give --checkpoint_dir")
-    p.add_argument("--checkpoint_dir", type=str, default=None,
-                   help="map with a net of the latest checkpoint here (of "
-                        "cli.train or cli.train_cps); or give --weights")
+    if checkpoint_dir:
+        p.add_argument("--checkpoint_dir", type=str, default=None,
+                       help="map with a net of the latest checkpoint here "
+                            "(of cli.train or cli.train_cps); or give "
+                            "--weights")
     p.add_argument("--net", type=str, default="b", choices=["b", "e"],
                    help="which of the two mutually-trained networks of "
                         "--checkpoint_dir")
+
+
+def base_parser() -> argparse.ArgumentParser:
+    """The flags of predict and serve."""
+    p = _shared_parser()
+    _map_source_flags(p)
+    return p
+
+
+def export_parser() -> argparse.ArgumentParser:
+    """The flags of export_model: train's (a training bundle is the run
+    those flags describe; ``--checkpoint_dir`` is the map's source, or
+    ``--import_run``'s destination) and the map's source."""
+    p = train_parser()
+    _map_source_flags(p, checkpoint_dir=False)
     return p
 
 
@@ -118,8 +134,10 @@ def train_parser() -> argparse.ArgumentParser:
     p.add_argument("--rng_impl", type=str, default="threefry2x32",
                    choices=["threefry2x32", "rbg"],
                    help="accepted for the JAX package's command lines and "
-                        "without effect: the port draws from Philox "
-                        "torch.Generators")
+                        "without effect: the eager trainers draw from Philox "
+                        "torch.Generators, an exported training run "
+                        "(export_model --train_bundle) from a threefry2x32 "
+                        "counter stream")
     p.add_argument("--noise_impl", type=str, default="normal",
                    choices=["normal", "binom16"],
                    help="input-view noise sampler: binom16 = standardised "

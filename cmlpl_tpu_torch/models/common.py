@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cmlpl_tpu_torch.core.rng import uniform
 from cmlpl_tpu_torch.device import compute_precision
 
 
@@ -33,11 +34,12 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 2, 2)
 
 
-def keep_mask(shape, rate: float, generator: torch.Generator | None,
-              device) -> torch.Tensor:
+def keep_mask(shape, rate: float, generator, device) -> torch.Tensor:
     """Flax's ``nn.Dropout`` mask: keep each element with probability
-    ``1 - rate`` (a uniform draw below it)."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    ``1 - rate`` (a uniform draw below it).  ``generator``: a
+    ``torch.Generator`` (or None, torch's default) or a ``CounterStream``
+    (``core/rng.uniform``)."""
+    return uniform(generator, shape, device) < 1.0 - rate
 
 
 def dropout(z: torch.Tensor, rate: float, generator: torch.Generator | None,

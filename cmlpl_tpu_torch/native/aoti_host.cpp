@@ -10,6 +10,8 @@
 //                   platform (cuda or cpu)
 //   signature.txt   "input|output <name> <f32|i32|bf16|u8|u32> <dims|->",
 //                   one line an argument: padded_cube, spectra -> labels
+//                   (a training bundle: the state, scene and schedule ->
+//                   the final state and the metrics)
 //   meta.json       the artifact's metadata; the runner reads its
 //                   "platforms" (the default --device) and "compute_dtype"
 //
@@ -17,6 +19,13 @@
 //   aoti_host --bundle DIR --cube C.npy --spectra S.npy --out O.npy
 //       [--repeat N] [--device cuda|cpu]
 //     prints one JSON line: load_ms, run_ms_min, run_ms_mean, repeat
+//   aoti_host --bundle DIR --inputs IN --outdir OUT [--repeat N]
+//       [--device cuda|cpu]
+//     the N-ary mode of a training bundle (utils/export.save_run_bundle):
+//     reads IN/<name>.npy for every signature input, runs the package,
+//     writes OUT/<name>.npy for every output; prints one JSON line:
+//     load_ms, run_ms_min, run_ms_mean, repeat, num_inputs, num_outputs
+//     (a run: every input's upload to every output's copy back)
 //   aoti_host --bundle DIR --serve [--device cuda|cpu]
 //     reads requests from stdin, one a line, "cube.npy spectra.npy out.npy",
 //     and answers "ok <out> <ms>" or "error <msg>", one line each; the
@@ -260,9 +269,11 @@ struct Host {
   at::Device device = at::kCPU;
   Signature sig;
 
-  // Runs the package on the inputs; returns the first output on the host
-  // and the milliseconds from the inputs' upload to that copy.
-  std::pair<at::Tensor, double> Run(std::vector<Npy>& inputs) {
+  // Runs the package on the inputs; returns every output on the host, each
+  // held to the signature, and the milliseconds from the inputs' upload to
+  // the last output's copy back.
+  std::pair<std::vector<at::Tensor>, double> RunAll(
+      std::vector<Npy>& inputs) {
     auto t0 = std::chrono::steady_clock::now();
     std::vector<at::Tensor> args;
     for (size_t i = 0; i < inputs.size(); ++i) {
@@ -277,21 +288,34 @@ struct Host {
       Die("package gave " + std::to_string(outs.size()) +
           " outputs, signature wants " +
           std::to_string(sig.outputs.size()));
-    at::Tensor out = outs[0].to(at::kCPU).contiguous();
+    for (at::Tensor& out : outs) out = out.to(at::kCPU).contiguous();
     double ms = MsSince(t0);
-    const ArgSpec& ospec = sig.outputs[0];
-    if (out.scalar_type() != DtypeToTorch(ospec.dtype) ||
-        out.sizes().vec() != ospec.dims)
-      Die("package output " + std::string(c10::toString(out.scalar_type())) +
-          " " + Dims(out.sizes().vec()) + ", signature wants " +
-          ospec.dtype + " " + Dims(ospec.dims));
-    return {out, ms};
+    for (size_t i = 0; i < outs.size(); ++i) {
+      const ArgSpec& ospec = sig.outputs[i];
+      if (outs[i].scalar_type() != DtypeToTorch(ospec.dtype) ||
+          outs[i].sizes().vec() != ospec.dims)
+        Die("package output " + ospec.name + " " +
+            std::string(c10::toString(outs[i].scalar_type())) + " " +
+            Dims(outs[i].sizes().vec()) + ", signature wants " +
+            ospec.dtype + " " + Dims(ospec.dims));
+    }
+    return {outs, ms};
+  }
+
+  std::pair<at::Tensor, double> Run(std::vector<Npy>& inputs) {
+    auto [outs, ms] = RunAll(inputs);
+    return {outs[0], ms};
+  }
+
+  void Write(const at::Tensor& out, const ArgSpec& spec,
+             const std::string& path) {
+    WriteNpy(path, DtypeToNpy(spec.dtype), spec.dims, out.data_ptr(),
+             out.nbytes());
   }
 
   double RunTo(std::vector<Npy>& inputs, const std::string& out_path) {
     auto [out, ms] = Run(inputs);
-    WriteNpy(out_path, DtypeToNpy(sig.outputs[0].dtype), sig.outputs[0].dims,
-             out.data_ptr(), out.nbytes());
+    Write(out, sig.outputs[0], out_path);
     return ms;
   }
 };
@@ -317,7 +341,7 @@ int main(int argc, char** argv) {
 }
 
 static int RunMain(int argc, char** argv) {
-  std::string bundle, cube, spectra, out_path, device_name;
+  std::string bundle, cube, spectra, out_path, device_name, in_dir, out_dir;
   int repeat = 1;
   bool serve = false;
   for (int i = 1; i < argc; ++i) {
@@ -333,6 +357,8 @@ static int RunMain(int argc, char** argv) {
     else if (a == "--repeat") repeat = std::stoi(next());
     else if (a == "--device") device_name = next();
     else if (a == "--serve") serve = true;
+    else if (a == "--inputs") in_dir = next();
+    else if (a == "--outdir") out_dir = next();
     else if (a == "--dump_signature") {
       Signature sig = ParseSignature(next() + "/signature.txt");
       for (const ArgSpec& s : sig.inputs)
@@ -355,7 +381,8 @@ static int RunMain(int argc, char** argv) {
   }
   if (bundle.empty() || repeat < 1)
     Die("usage: aoti_host --bundle DIR [--cube C --spectra S --out O "
-        "[--repeat N] | --serve] [--device cuda|cpu]");
+        "[--repeat N] | --inputs DIR --outdir DIR [--repeat N] | --serve] "
+        "[--device cuda|cpu]");
 
   std::string meta = ReadFile(bundle + "/meta.json");
   std::string platform = JsonWord(meta, "platforms");
@@ -408,6 +435,33 @@ static int RunMain(int argc, char** argv) {
       }
       fflush(stdout);
     }
+    return 0;
+  }
+
+  if (!in_dir.empty() || !out_dir.empty()) {
+    if (in_dir.empty() || out_dir.empty())
+      Die("--inputs and --outdir go together");
+    std::vector<std::string> paths;
+    for (const ArgSpec& spec : host.sig.inputs)
+      paths.push_back(in_dir + "/" + spec.name + ".npy");
+    auto inputs = LoadInputs(host.sig, paths);
+    std::vector<at::Tensor> outs;
+    double best = 1e30, sum = 0;
+    for (int r = 0; r < repeat; ++r) {
+      auto [o, ms] = host.RunAll(inputs);
+      outs = std::move(o);
+      best = best < ms ? best : ms;
+      sum += ms;
+    }
+    for (size_t i = 0; i < outs.size(); ++i)
+      host.Write(outs[i], host.sig.outputs[i],
+                 out_dir + "/" + host.sig.outputs[i].name + ".npy");
+    printf(
+        "{\"load_ms\": %.3f, \"run_ms_min\": %.3f, \"run_ms_mean\": %.3f, "
+        "\"repeat\": %d, \"num_inputs\": %zu, \"num_outputs\": %zu, "
+        "\"device\": \"%s\"}\n",
+        load_ms, best, sum / repeat, repeat, inputs.size(), outs.size(),
+        device_name.c_str());
     return 0;
   }
 

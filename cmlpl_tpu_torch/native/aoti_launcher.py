@@ -1,4 +1,4 @@
-"""Build and launch the native serving runner (``aoti_host.cpp``;
+"""Build and launch the native runner (``aoti_host.cpp``;
 ``cmlpl_tpu/native/pjrt_launcher.py:59-213``).
 
 The runner is a C++ program against the installed libtorch.  It is built
@@ -10,6 +10,8 @@ CUDA libraries are linked when that torch has CUDA.
 
     python -m cmlpl_tpu_torch.native.aoti_launcher --bundle DIR \
         --cube cube.npy --spectra spectra.npy --out labels.npy --repeat 5
+    python -m cmlpl_tpu_torch.native.aoti_launcher --bundle TRAIN_DIR \
+        --inputs TRAIN_DIR/inputs --outdir OUT
 """
 
 from __future__ import annotations
@@ -86,21 +88,40 @@ def build_host(force: bool = False) -> str:
         return path
 
 
+def _run(args: list[str], timeout: float | None) -> dict:
+    """The runner on ``args``: its JSON line as a dict.  Raises
+    RuntimeError with the runner's errors when it fails."""
+    proc = subprocess.run([build_host(), *args], capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"aoti_host failed ({proc.returncode}):\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def run_host(bundle: str, cube_npy: str, spectra_npy: str, out_npy: str,
              *, repeat: int = 1, device: str = "cuda",
              timeout: float | None = None) -> dict:
     """One-shot native inference: the runner's JSON line (``load_ms``,
     ``run_ms_min``, ``run_ms_mean``, ``repeat``) as a dict.  Raises
     RuntimeError with the runner's errors when it fails."""
-    cmd = [build_host(), "--bundle", bundle, "--cube", cube_npy,
-           "--spectra", spectra_npy, "--out", out_npy, "--repeat",
-           str(repeat), "--device", device]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=timeout)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"aoti_host failed ({proc.returncode}):\n{proc.stderr}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    return _run(["--bundle", bundle, "--cube", cube_npy, "--spectra",
+                 spectra_npy, "--out", out_npy, "--repeat", str(repeat),
+                 "--device", device], timeout)
+
+
+def run_host_io(bundle: str, inputs_dir: str, outdir: str, *,
+                repeat: int = 1, device: str = "cuda",
+                timeout: float | None = None) -> dict:
+    """A training bundle's run (``--inputs --outdir``): reads
+    ``<inputs_dir>/<name>.npy`` for every signature input and writes
+    ``<outdir>/<name>.npy`` for every output.  Returns the runner's JSON
+    line (``load_ms``, ``run_ms_min``, ``run_ms_mean``, ``repeat``,
+    ``num_inputs``, ``num_outputs``, ``device``) as a dict."""
+    os.makedirs(outdir, exist_ok=True)
+    return _run(["--bundle", bundle, "--inputs", inputs_dir, "--outdir",
+                 outdir, "--repeat", str(repeat), "--device", device],
+                timeout)
 
 
 def main(argv=None):
@@ -108,14 +129,26 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--bundle", required=True)
-    p.add_argument("--cube", required=True)
-    p.add_argument("--spectra", required=True)
+    p.add_argument("--cube")
+    p.add_argument("--spectra")
     p.add_argument("--out", default="labels.npy")
+    p.add_argument("--inputs", help="a training bundle's inputs directory "
+                                    "(with --outdir, in place of --cube "
+                                    "and --spectra)")
+    p.add_argument("--outdir")
     p.add_argument("--repeat", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
-    result = run_host(args.bundle, args.cube, args.spectra, args.out,
-                      repeat=args.repeat, device=args.device)
+    if args.inputs or args.outdir:
+        if not (args.inputs and args.outdir):
+            p.error("--inputs and --outdir go together")
+        result = run_host_io(args.bundle, args.inputs, args.outdir,
+                             repeat=args.repeat, device=args.device)
+    else:
+        if not (args.cube and args.spectra):
+            p.error("one-shot mode needs --cube and --spectra")
+        result = run_host(args.bundle, args.cube, args.spectra, args.out,
+                          repeat=args.repeat, device=args.device)
     print(json.dumps(result))
     return result
 

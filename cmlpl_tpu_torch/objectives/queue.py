@@ -8,6 +8,10 @@ write needs no device synchronisation.  A step must smooth with the queue
 (:func:`memory_smooth`) before it writes the step's rows
 (:func:`queue_update`): smoothing reads the old contents.
 
+An exported training run writes out of place (:func:`queue_write`): the
+rows go to ``(ptr + arange(n)) % size`` by ``index_copy``, the pointer is a
+0-d tensor, and the values equal :func:`queue_update`'s.
+
 Pointer semantics: the reference advances the pointer by the constant 256
 instead of the written row count, and seeds ``queue_ptr1`` from the
 *already updated* ``queue_ptr`` (``train.py:234-237``).  Like the JAX
@@ -67,3 +71,18 @@ def queue_update(queue: QueueState, new_feats: torch.Tensor,
         dst[..., queue.ptr:queue.ptr + head, :] = src[..., :head, :]
         dst[..., :n - head, :] = src[..., head:, :]
     queue.ptr = (queue.ptr + n) % size
+
+
+def queue_write(queue: QueueState, new_feats: torch.Tensor,
+                new_probs: torch.Tensor) -> QueueState:
+    """:func:`queue_update` out of place, for a traced step: the rows at
+    ``(ptr + arange(n)) % size``, the pointer a 0-d integer tensor.
+    Returns the new queue."""
+    size = queue.feats.shape[-2]
+    n = new_feats.shape[-2]
+    if n > size:
+        raise ValueError(f"{n} rows do not fit a queue of {size}")
+    rows = (queue.ptr + torch.arange(n, device=new_feats.device)) % size
+    return QueueState(queue.feats.index_copy(-2, rows, new_feats),
+                      queue.probs.index_copy(-2, rows, new_probs),
+                      (queue.ptr + n) % size)

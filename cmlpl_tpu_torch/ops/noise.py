@@ -19,6 +19,11 @@ threefry: the views hold the JAX package's distribution, not its bits.
 - ``noise_fused=True``: one draw per view over the labeled||unlabeled
   concatenation (4 draws instead of 8); same element distribution and
   independence between views.
+
+Every sampler takes a draw source ``g``: the eager ``torch.Generator``, or
+the :class:`~cmlpl_tpu_torch.core.rng.CounterStream` of an exported
+training run (``core/rng.py``), whose f32 normal is ``sqrt(2) erfinv`` of a
+24-bit uniform and whose bf16 normal takes the same 128 levels.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ import functools
 import math
 
 import torch
+
+from cmlpl_tpu_torch.core.rng import (CounterStream, integers,
+                                      normal_f32, uniform)
 
 
 def popcount16(bits: torch.Tensor) -> torch.Tensor:
@@ -59,8 +67,10 @@ def normal(g: torch.Generator, shape, dtype: torch.dtype,
     except in bf16, where the JAX package's sampler takes one of its 128
     values (:func:`_bf16_normal_levels`) for a uniform 7-bit draw."""
     if dtype == torch.bfloat16:
-        k = torch.randint(0, 128, shape, generator=g, device=device)
+        k = integers(g, 128, shape, device)
         return _bf16_normal_levels(torch.device(device))[k]
+    if isinstance(g, CounterStream):
+        return normal_f32(g, shape).to(dtype)
     return torch.randn(shape, generator=g, device=device, dtype=dtype)
 
 
@@ -74,7 +84,7 @@ def masked_choice(g: torch.Generator, mask: torch.Tensor,
     search of the row's running count."""
     csum = mask.long().cumsum(-1)
     total = csum[..., -1:]
-    u = torch.rand(mask.shape[:-1] + (n,), generator=g, device=mask.device)
+    u = uniform(g, mask.shape[:-1] + (n,), mask.device)
     k = torch.minimum((u * total).long(), total - 1)
     return torch.searchsorted(csum, k, right=True).clamp(
         max=mask.shape[-1] - 1)
@@ -91,8 +101,7 @@ def make_noiser(noise_impl: str, scale: float):
             return normal(g, shape, dtype, device)
     elif noise_impl == "binom16":
         def sample(g, shape, dtype, device):
-            bits = torch.randint(0, 1 << 16, shape, generator=g,
-                                 device=device, dtype=torch.int32)
+            bits = integers(g, 1 << 16, shape, device, torch.int32)
             return (popcount16(bits).to(dtype) - 8) * 0.5
     else:
         raise ValueError(f"unknown noise_impl {noise_impl!r} "

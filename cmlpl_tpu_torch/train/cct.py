@@ -58,6 +58,11 @@ class CCTTrainer(EpochDriver):
     """Builds the CCT state and runs its steps on ``device`` (the CUDA card
     unless the caller asks for the CPU)."""
 
+    #: the JAX state tree's places (``train/functional.StateLayout``): the
+    #: two Adams overlap in the encoder, ``opt_base`` stepping first
+    JAX_PARAMS = {"model": ("params",)}
+    JAX_OPTS = (("model", ("opt_base", "0")), ("model", ("opt_aug", "0")))
+
     def new_state(self, params, run_seed: int) -> CCTTrainState:
         """A state from the CCT param tree in the JAX layout
         (``{"encoder", "dec_base", "dec1", "dec2"}``), fresh Adam states,
@@ -127,8 +132,8 @@ class CCTTrainer(EpochDriver):
                       for _ in range(2))
         return {"xp": xp_all, "x": x_all, "aug1": aug1, "aug2": aug2}
 
-    def _losses(self, apply, d, lab_y, carry, epoch: int, batch_index: int,
-                g=None):
+    def _losses(self, apply, d, lab_y, carry, epoch, batch_index, g=None,
+                thr=None):
         bt = lab_y.shape[0]
         scale = self.noisy.scale
         fea_all, _ = apply("model.encoder", d["xp"], d["x"])

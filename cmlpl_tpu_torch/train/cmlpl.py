@@ -27,6 +27,7 @@ net E's dropout mask, the memory bank's choices.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from cmlpl_tpu_torch.data.augment import (mixture_noise, radiation_noise,
@@ -51,6 +52,15 @@ METRICS = ("loss_contrast", "total_loss", "cls_loss", "con_loss",
            "total_loss_e", "acc", "mask_rate")
 EXTRA_LOSSES = ("", "memobank", "mmd", "ntxent")
 AUGMENTS = ("flip", "rot90", "radiation", "mixture")
+
+
+def _when(cond, fn, other):
+    """``fn()`` where ``cond`` holds, else ``other``: a Python branch for a
+    bool, a ``torch.where`` over both for a 0-d tensor (a traced step's
+    schedule), whose selected values are the branch's."""
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond, fn(), other)
+    return fn() if cond else other
 
 
 class CMLPLTrainer(TwoNetDriver):
@@ -119,6 +129,21 @@ class CMLPLTrainer(TwoNetDriver):
                 "memobank is not ported: the bank's choices depend on the "
                 "step's forward (ROADMAP.md section 1)")
 
+    def _check_run_exportable(self) -> None:
+        if self.config.extra_loss == "memobank":
+            raise NotImplementedError(
+                "an exported training run with --extra_loss memobank is not "
+                "ported: the bank's choices depend on the step's forward "
+                "(ROADMAP.md item 10c)")
+        super()._check_run_exportable()
+
+    def _run_extras(self) -> tuple:
+        """``extra0``: the adaptive threshold of each epoch
+        (``cmlpl_tpu/train/cmlpl.py:585-592``)."""
+        cfg = self.config
+        return (np.asarray([adaptive_threshold(e, cfg.num_epochs, cfg.thr)
+                            for e in range(cfg.num_epochs)], np.float32),)
+
     def _draws(self, g, xp_l, x_l, xp_u, x_u, lab_y) -> dict:
         """The augmentations (labeled, then unlabeled), the noise views,
         net B's then net E's dropout mask."""
@@ -127,12 +152,16 @@ class CMLPLTrainer(TwoNetDriver):
             xp_u = self._augmented(g, xp_u)
         return self._views(g, xp_l, x_l, xp_u, x_u)
 
-    def _losses(self, apply, d, lab_y, carry, epoch: int, batch_index: int,
-                g=None):
+    def _losses(self, apply, d, lab_y, carry, epoch, batch_index, g=None,
+                thr=None):
         cfg = self.config
         bt = lab_y.shape[0]
-        adap_mask_thr = adaptive_threshold(epoch, cfg.num_epochs, cfg.thr)
-        warm = epoch > 0 or batch_index > cfg.queue_batch
+        if thr is None:
+            thr = adaptive_threshold(epoch, cfg.num_epochs, cfg.thr)
+        if isinstance(epoch, torch.Tensor):
+            warm = torch.logical_or(epoch > 0, batch_index > cfg.queue_batch)
+        else:
+            warm = epoch > 0 or batch_index > cfg.queue_batch
         onehot = (lab_y[:, None] == torch.arange(
             cfg.num_classes, device=lab_y.device)).float()
 
@@ -152,16 +181,14 @@ class CMLPLTrainer(TwoNetDriver):
             probs_orig1 = torch.softmax(un_b.detach(), dim=1)
             # smoothing reads the queues, which the step writes after
             # the update
-            probs, probs1 = probs_orig, probs_orig1
-            if warm:
-                probs = memory_smooth(xw.detach(), probs_orig,
-                                      carry["queue_w"], cfg.alpha,
-                                      cfg.temperature)
-                probs1 = memory_smooth(xs.detach(), probs_orig1,
-                                       carry["queue_s"], cfg.alpha,
-                                       cfg.temperature)
-            mask = (probs.max(dim=1).values >= adap_mask_thr).float()
-            masks = (probs1.max(dim=1).values >= adap_mask_thr).float()
+            probs = _when(warm, lambda: memory_smooth(
+                xw.detach(), probs_orig, carry["queue_w"], cfg.alpha,
+                cfg.temperature), probs_orig)
+            probs1 = _when(warm, lambda: memory_smooth(
+                xs.detach(), probs_orig1, carry["queue_s"], cfg.alpha,
+                cfg.temperature), probs_orig1)
+            mask = (probs.max(dim=1).values >= thr).float()
+            masks = (probs1.max(dim=1).values >= thr).float()
             # [other-net unlabeled feats, own labeled feats] with the
             # pre-smoothing probs / one-hot labels (train.py:223-237)
             writes = {"queue_w": (torch.cat([xw.detach(),

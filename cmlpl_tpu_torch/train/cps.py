@@ -56,8 +56,8 @@ class CPSTrainer(TwoNetDriver):
     def _draws(self, g, xp_l, x_l, xp_u, x_u, lab_y) -> dict:
         return self._views(g, xp_l, x_l, xp_u, x_u)
 
-    def _losses(self, apply, d, lab_y, carry, epoch: int, batch_index: int,
-                g=None):
+    def _losses(self, apply, d, lab_y, carry, epoch, batch_index, g=None,
+                thr=None):
         bt = lab_y.shape[0]
         (logits_b, _), (logits_e, _) = self._forwards(apply, d)
         lab_b, un_b = logits_b[:bt], logits_b[bt:]

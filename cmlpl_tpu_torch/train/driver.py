@@ -36,6 +36,13 @@ order either way, and as in the JAX package.
 Metrics stay on the device until the call ends and then come back in one
 copy; the history is a list of dicts of floats, one per step.
 
+An exported training run (``utils/export.build_run_exported``) runs the
+same ``_draws`` and ``_losses`` as one program: ``train/functional.py``
+steps the state's tensors functionally, and a trainer names where its
+parts sit in the JAX state (``JAX_PARAMS``, ``JAX_OPTS``), what a run
+program cannot replay (``_check_run_exportable``) and its per-run inputs
+(``_run_extras``).
+
 Fused multi-seed runs (:meth:`EpochDriver.train_multi_run`, the JAX
 package's ``cmlpl_tpu/train/driver.py:149-207``): N seeds' runs as one
 step loop over a :class:`SeedStack`.  Each parameter is one leaf of shape
@@ -199,10 +206,13 @@ class EpochDriver:
         raise NotImplementedError
 
     def _losses(self, apply: Apply, d: dict, lab_y, carry: dict,
-                epoch: int, batch_index: int, g=None):
+                epoch, batch_index, g=None, thr=None):
         """The rest of a step on the draws ``d``: (the loss to minimise,
         its metrics as 0-d tensors, the rows to write into ``carry``).
-        ``g`` is the generator in a serial step, None in a fused one."""
+        ``g`` is the generator in a serial step, None in a fused one.
+        ``epoch`` and ``batch_index`` are ints, or 0-d tensors in a traced
+        step (``train/functional.py``), which then passes CMLPL's adaptive
+        threshold as ``thr`` (else computed from ``epoch``)."""
         raise NotImplementedError
 
     def _write(self, carry: dict, writes: dict) -> None:
@@ -423,6 +433,21 @@ class EpochDriver:
     def _check_fusable(self) -> None:
         """Raises NotImplementedError for what a fused run cannot replay."""
 
+    def _check_run_exportable(self) -> None:
+        """Raises NotImplementedError for what an exported training run
+        cannot replay (``utils/export.build_run_exported``): it gathers
+        the pool once, so it needs the pool mode."""
+        if self.config.gather_impl != "pool":
+            raise NotImplementedError(
+                "an exported training run gathers its pool once: it needs "
+                f"gather_impl 'pool' (or 'auto' resolving to it), not "
+                f"{self.config.gather_impl!r}")
+
+    def _run_extras(self) -> tuple:
+        """The run program's per-run inputs after the schedule
+        (``extra0``, ...), as the JAX trainer's ``_run_extras``."""
+        return ()
+
     def train_multi_run(self, seed, scene: PreparedScene, sampler,
                         num_iters: int, states=None):
         """ALL ``num_iters`` runs as ONE step loop over seed-stacked states
@@ -488,6 +513,13 @@ class EpochDriver:
 class TwoNetDriver(EpochDriver):
     """The dual-BaseNet2 trainers (CMLPL, CPS): each net is a BaseNet2 with
     its own Adam, built from a JAX-layout param tree."""
+
+    #: where each module's params and each Adam's (module, optax state)
+    #: sit in the JAX state tree (``train/functional.StateLayout``)
+    JAX_PARAMS = {"net_b": ("net_b", "params"),
+                  "net_e": ("net_e", "params")}
+    JAX_OPTS = (("net_b", ("net_b", "opt_state", "0")),
+                ("net_e", ("net_e", "opt_state", "0")))
 
     def _new_net(self, params) -> NetState:
         cfg = self.config

@@ -51,8 +51,8 @@ class CMLPLConfig:
     # keeps them f32 (ops/patch_gather.make_input_cast)
     input_dtype: str = "compute"
     # accepted for the JAX package's CLI and configs, and without effect:
-    # threefry and rbg have no PyTorch counterpart; the port draws from
-    # Philox torch.Generators
+    # the eager trainers draw from Philox torch.Generators, an exported
+    # training run from a threefry2x32 counter stream (core/rng.py)
     rng_impl: str = "threefry2x32"
     # noise views (ops/noise.py): "normal" | "binom16"; fused = 4 draws
     noise_impl: str = "normal"

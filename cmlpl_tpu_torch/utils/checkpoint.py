@@ -46,12 +46,14 @@ class _Node(dict):
 
 
 def save_checkpoint(directory: str, trainer, state,
-                    step: int | None = None) -> str:
+                    step: int | None = None, generator: bool = True) -> str:
     """Write ``state`` (of ``trainer``, which gives its JAX-layout tree)
     under ``<directory>/<step>/``, the state's step by default, replacing
     one there; returns its path.  The files are written to a sibling
     directory first and moved into place, so a run cut during a save
-    leaves the last whole checkpoint the latest."""
+    leaves the last whole checkpoint the latest.  ``generator=False``
+    writes no ``generator.npy`` (a state whose draws came from elsewhere:
+    an exported run's, ``cli/export_model.py --import_run``)."""
     directory = os.path.abspath(directory)
     path = os.path.join(directory, str(state.step if step is None else step))
     tmp = path + ".tmp"
@@ -59,8 +61,9 @@ def save_checkpoint(directory: str, trainer, state,
     os.makedirs(tmp)
     save_params_npz(os.path.join(tmp, STATE_FILE),
                     trainer.state_to_jax(state))
-    np.save(os.path.join(tmp, GENERATOR_FILE),
-            state.generator.get_state().numpy())
+    if generator:
+        np.save(os.path.join(tmp, GENERATOR_FILE),
+                state.generator.get_state().numpy())
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
     return path

@@ -260,15 +260,17 @@ def load_exported(path: str, device=None):
     return meta, fn
 
 
-def signature_lines(exported) -> list[str]:
+def signature_lines(exported, in_names=IN_NAMES,
+                    out_names=(OUT_NAME,)) -> list[str]:
     """``input|output <name> <dtype> <dims|->`` lines of the program, the
-    grammar of ``cmlpl_tpu/native/pjrt_host.cc``'s ``signature.txt``."""
+    grammar of ``cmlpl_tpu/native/pjrt_host.cc``'s ``signature.txt``, for
+    its arguments and results named ``in_names`` and ``out_names``."""
     specs = exported.graph_signature.user_inputs
     nodes = {n.name: n for n in exported.graph.nodes if n.op == "placeholder"}
     ins = [nodes[s].meta["val"] for s in specs]
     out_node = next(n for n in exported.graph.nodes if n.op == "output")
     outs = [a.meta["val"] for a in out_node.args[0]]
-    if len(ins) != len(IN_NAMES) or len(outs) != 1:
+    if len(ins) != len(in_names) or len(outs) != len(out_names):
         raise ValueError("signature name count mismatch")
 
     def line(kind, name, t):
@@ -278,8 +280,8 @@ def signature_lines(exported) -> list[str]:
         dims = ",".join(str(int(d)) for d in t.shape)
         return f"{kind} {name} {dt} {dims or '-'}"
 
-    return ([line("input", n, t) for n, t in zip(IN_NAMES, ins)]
-            + [line("output", OUT_NAME, outs[0])])
+    return ([line("input", n, t) for n, t in zip(in_names, ins)]
+            + [line("output", n, t) for n, t in zip(out_names, outs)])
 
 
 def inductor_cxx() -> str:
@@ -307,13 +309,15 @@ def inductor_cxx() -> str:
                        "which AOTInductor's package needs")
 
 
-def save_native_bundle(dir_path: str, meta: dict, exported) -> str:
+def save_native_bundle(dir_path: str, meta: dict, exported, *,
+                       in_names=IN_NAMES, out_names=(OUT_NAME,)) -> str:
     """Write the native runner's bundle (``native/aoti_host.cpp``):
 
     - ``model.pt2``      an AOTInductor package of the program, compiled
       for its platform under the meta's compute precision;
     - ``signature.txt``  one ``input|output <name> <dtype> <dims>`` line
-      per argument, the JAX bundle's grammar;
+      per argument and result (``in_names``, ``out_names``), the JAX
+      bundle's grammar;
     - ``meta.json``      the artifact's metadata (its platform and compute
       dtype are what the runner reads).
 
@@ -322,10 +326,10 @@ def save_native_bundle(dir_path: str, meta: dict, exported) -> str:
     import torch._inductor
 
     os.makedirs(dir_path, exist_ok=True)
-    sig = signature_lines(exported)
+    sig = signature_lines(exported, in_names, out_names)
     package = os.path.join(os.path.abspath(dir_path), "model.pt2")
     # no buffer reuse: torch 2.11's Inductor fails its reuse planning
-    # inside the tile loop's body ("End index out of bounds")
+    # inside a while_loop's body ("End index out of bounds")
     options = {"cpp.cxx": (None, inductor_cxx()),
                "allow_buffer_reuse": False}
     with (compute_precision(meta["compute_dtype"]),
@@ -337,3 +341,269 @@ def save_native_bundle(dir_path: str, meta: dict, exported) -> str:
     with open(os.path.join(dir_path, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1)
     return package
+
+
+# --------------------------------------------------------------------------
+# the training-run bundle (``cmlpl_tpu/utils/export.py:183-350``)
+# --------------------------------------------------------------------------
+
+#: the run program's inputs after the state's leaves, in order: the scene,
+#: the pool, the (E, N, B) schedule (then a trainer's ``extra0``, ...)
+RUN_INPUTS = ("padded_pca", "spectra", "pool_idx", "lab_idx", "lab_y",
+              "unl_idx")
+
+
+def _canonical(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with the contiguous strides of its shape, size-1
+    dims included: a ``while_loop`` requires each carried tensor to come
+    back with the strides it went in with, and the strides a traced op
+    gives a size-1 dim are its meta function's choice."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _reshape_views(gm: torch.fx.GraphModule) -> torch.fx.GraphModule:
+    """Turn the traced step's ``view`` nodes into ``reshape``.  ``make_fx``
+    records a ``reshape`` as a ``view`` where the traced strides allow it;
+    torch 2.11's Dynamo re-traces a ``while_loop`` body with symbolic
+    shapes, whose strides may not (a pooled activation of the card's
+    channels-last convolutions), and refuses the view.  The values are the
+    same: the step mutates nothing in place."""
+    for node in gm.graph.nodes:
+        if node.op == "call_function" and node.target in (
+                torch.ops.aten.view.default,
+                torch.ops.aten._unsafe_view.default):
+            node.target = torch.ops.aten.reshape.default
+    gm.recompile()
+    return gm
+
+
+def _trace_step(step, layout, example, *, batches: int, with_thr: bool):
+    """``make_fx`` of the step at loop iteration ``i``: row ``i`` of the
+    flat schedule, epoch ``i // N``, batch index ``i % N``; returns the
+    new state (all but the key, each canonical) and the metrics in sorted
+    order, as JAX flattens the metrics dict.  Traced with real tensors
+    (``example``: ``i``, the state, then the key, the pooled sources, the
+    flat schedule and the threshold table), so the step runs once.
+    Returns (the graph, the metric names)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    n = len(layout.leaves) - 1
+    rng_at = [lf.kind for lf in layout.leaves].index("rng")
+    names = []
+
+    def iteration(i, *args):
+        state = list(args[:n])
+        key, xp_src, x_src, li, ly, ui, thr_table = args[n:]
+        epoch, b = i // batches, i % batches
+        thr = (thr_table.index_select(0, epoch.reshape(1)).reshape(())
+               if with_thr else None)
+        state.insert(rng_at, key)
+        row = i.reshape(1)
+        new, metrics = step(state, xp_src, x_src,
+                            *(a.index_select(0, row).reshape(-1)
+                              for a in (li, ly, ui)), epoch, b, thr)
+        new.pop(rng_at)
+        names[:] = sorted(metrics)
+        return (*(_canonical(t) for t in new),
+                *(metrics[k] for k in names))
+
+    gm = make_fx(iteration, tracing_mode="real")(*example)
+    return _reshape_views(gm), list(names)
+
+
+def _run_sources(layout, inputs, *, cast, cols: int, w: int,
+                 with_thr: bool):
+    """(the state in the step's layout without the key, the constants of
+    every step: the key, the pooled patches and spectra, the flat
+    (E·N, B) schedule, the threshold table), from the run's inputs."""
+    n = len(layout.leaves)
+    state = [_canonical(t) for t in layout.to_torch(inputs[:n])]
+    key = state.pop([lf.kind for lf in layout.leaves].index("rng"))
+    padded, spectra, pool_idx, li, ly, ui = inputs[n:n + 6]
+    thr = inputs[n + 6] if with_thr else torch.zeros(1, device=li.device)
+    xp_src = gather_patches(cast(padded), pool_idx, cols=cols, w=w)
+    x_src = cast(gather_spectra(spectra, pool_idx))
+    flat = (a.reshape(li.shape[0] * li.shape[1], -1) for a in (li, ly, ui))
+    return state, (key.to(torch.int64), xp_src, x_src, *flat, thr)
+
+
+class _RunProgram(nn.Module):
+    """The whole training run as one program of the JAX bundle's
+    signature: the state's leaves (flax layout), the scene, the pool and
+    the schedule, and CMLPL's per-epoch threshold in; the final leaves and
+    every metric stacked (E, N) out.
+
+    The pool is gathered once by the plain gather (the kernels are
+    ``ctypes`` launches, which ``torch.export`` cannot capture; the JAX
+    run program's bulk gather is the plain gather too).  The E·N steps are
+    one functional ``while_loop`` carrying the state (step layout, all
+    but the key) and the metric buffers; the step is ``step_graph``,
+    :class:`~cmlpl_tpu_torch.train.functional.RunStep` traced once
+    (:func:`_trace_step`) with ``metrics`` metrics.  ``sources``: the
+    keywords of :func:`_run_sources`."""
+
+    def __init__(self, layout, step_graph, metrics: int, sources: dict):
+        super().__init__()
+        self.layout = layout
+        self.step_graph = step_graph
+        self.metrics = metrics
+        self.sources = sources
+
+    def forward(self, *inputs):
+        from torch._higher_order_ops.while_loop import while_loop
+
+        state, consts = _run_sources(self.layout, inputs, **self.sources)
+        n = len(state)
+        steps = consts[3].shape[0]
+        bufs = [torch.zeros(steps, device=consts[0].device)
+                for _ in range(self.metrics)]
+
+        def cond(i, *carry):
+            return i < steps
+
+        def body(i, *carry):
+            out = self.step_graph(i, *carry[:n], *consts)
+            row = i.reshape(1)
+            return (i + 1, *out[:n],
+                    *(buf.index_copy(0, row, m.reshape(1))
+                      for buf, m in zip(carry[n:], out[n:])))
+
+        start = torch.zeros((), dtype=torch.int64, device=consts[0].device)
+        out = while_loop(cond, body, (start, *state, *bufs))[1:]
+        state = list(out[:n])
+        rng_at = [lf.kind for lf in self.layout.leaves].index("rng")
+        state.insert(rng_at, inputs[rng_at].clone())
+        shape = inputs[n + 1 + 3].shape[:2]       # lab_idx's (E, N)
+        return (*self.layout.to_jax(state),
+                *(m.reshape(shape) for m in out[n:]))
+
+
+def build_run_exported(trainer, scene: PreparedScene, sampler, seed, *,
+                       platform: Optional[str] = None):
+    """Export ``trainer``'s WHOLE training run at its config as one
+    ``torch.export`` program, the JAX bundle's native-training contract.
+
+    The initial state is ``trainer.init_state(seed)`` (``cli.train``'s
+    serial run ``(seed, 0)`` when ``seed`` is that pair) and the run's key
+    ``core/rng.seed_key(seed)``; the schedule is drawn from ``sampler`` as
+    ``train_run`` draws it and pooled (``poolify_batches``).  The draws of
+    each step come from that key and the step number inside the program
+    (``core/rng.CounterStream``).  ``platform`` ("cuda" or "cpu", default
+    the trainer's device) must be the trainer's device type.
+
+    Returns ``(meta, exported, inputs)``: ``inputs`` the ordered
+    ``{name: numpy array}`` of the program's arguments, named as the JAX
+    bundle names them (``state.<path>`` in the flax layout, then
+    :data:`RUN_INPUTS` and ``extra0``), so either package's program takes
+    the same ``inputs/`` directory."""
+    from cmlpl_tpu_torch.core.rng import seed_key
+    from cmlpl_tpu_torch.ops.patch_gather import poolify_batches
+    from cmlpl_tpu_torch.train.driver import stack_schedule
+    from cmlpl_tpu_torch.train.functional import RunStep, StateLayout
+
+    cfg = trainer.config
+    device = trainer.device
+    if platform is not None and torch.device(platform).type != device.type:
+        raise ValueError(f"a {platform} program needs a trainer on "
+                         f"{platform}, not on {device}")
+    trainer._check_run_exportable()
+    state = trainer.init_state(seed)
+    layout = StateLayout(trainer, state, seed_key(seed))
+    step = RunStep(trainer, state, layout)
+
+    li, ly, ui = stack_schedule(sampler, cfg.num_epochs)
+    pool, li, ui = poolify_batches(li, ui)
+    extras = [np.asarray(e) for e in trainer._run_extras()]
+    inputs = dict(zip(layout.names, layout.values))
+    inputs.update(zip(RUN_INPUTS, (scene.padded_pca.cpu().numpy(),
+                                   scene.spectra.cpu().numpy(), pool, li,
+                                   np.asarray(ly, np.int32), ui)))
+    inputs.update({f"extra{i}": e for i, e in enumerate(extras)})
+    with_thr = bool(extras)
+    b = li.shape[1]
+
+    args = tuple(torch.from_numpy(np.array(v)).to(device)
+                 for v in inputs.values())
+    sources = dict(cast=trainer.cast, cols=scene.cols, w=cfg.patch_size,
+                   with_thr=with_thr)
+    with compute_precision("float32"):
+        state_t, consts = _run_sources(layout, args, **sources)
+        i0 = torch.zeros((), dtype=torch.int64, device=device)
+        graph, names = _trace_step(step, layout, (i0, *state_t, *consts),
+                                   batches=b, with_thr=with_thr)
+        program = _RunProgram(layout, graph, len(names), sources)
+        exported = torch.export.export(program, args)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "kind": "train_run",
+        "trainer": type(trainer).__name__,
+        "num_epochs": cfg.num_epochs,
+        "batches_per_epoch": int(b),
+        "gather_impl": cfg.gather_impl,
+        "rng_impl": cfg.rng_impl,
+        "input_names": list(inputs),
+        "output_names": layout.names + [f"metrics.{m}" for m in names],
+        "platforms": [device.type],
+        "torch_version": torch.__version__,
+        # the program's f32 work (losses, queues, Adam) runs with TF32 off
+        # under either model dtype, as the eager steps do; a bf16 model's
+        # layers are bf16 ops of the graph
+        "compute_dtype": "float32",
+        "model_dtype": cfg.compute_dtype,
+    }
+    return meta, exported, inputs
+
+
+def save_run_bundle(dir_path: str, meta: dict, exported, inputs) -> str:
+    """The training bundle: :func:`save_native_bundle`'s ``model.pt2``,
+    ``signature.txt`` (every input and output by name) and ``meta.json``,
+    and ``inputs/<name>.npy``, one file per input, everything the native
+    runner needs to train:
+
+        aoti_host --bundle DIR --inputs DIR/inputs --outdir OUT
+
+    Returns the package's path."""
+    package = save_native_bundle(dir_path, meta, exported,
+                                 in_names=meta["input_names"],
+                                 out_names=meta["output_names"])
+    idir = os.path.join(dir_path, "inputs")
+    os.makedirs(idir, exist_ok=True)
+    for name, value in inputs.items():
+        np.save(os.path.join(idir, name + ".npy"), value)
+    return package
+
+
+def run_outputs_tree(bundle_dir: str, outdir: str):
+    """A run's outputs (``<outdir>/<name>.npy``, one per signature output
+    of the bundle) as (the state's JAX tree without the key, nested
+    dicts; ``{metric: (E, N) array}``; the key)."""
+    with open(os.path.join(bundle_dir, "meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("kind") != "train_run":
+        raise ValueError(f"{bundle_dir} is not a training bundle")
+    tree: dict = {}
+    metrics, key = {}, None
+    for name in meta["output_names"]:
+        value = np.load(os.path.join(outdir, name + ".npy"))
+        kind, _, path = name.partition(".")
+        if kind == "metrics":
+            metrics[path] = value
+        elif path == "rng":
+            key = value
+        else:
+            *nodes, leaf = path.split(".")
+            node = tree
+            for part in nodes:
+                node = node.setdefault(part, {})
+            node[leaf] = value
+    return tree, metrics, key
+
+
+def load_run_outputs(bundle_dir: str, outdir: str, trainer):
+    """A native run's outputs as ``(state, metrics)``: the state of
+    ``trainer`` (built by its ``state_from_jax``, so its generator is
+    seeded as that seeds it) and ``{metric: (E, N) array}``."""
+    from cmlpl_tpu_torch.utils.checkpoint import _Node
+
+    tree, metrics, _ = run_outputs_tree(bundle_dir, outdir)
+    return trainer.state_from_jax(_Node(tree)), metrics

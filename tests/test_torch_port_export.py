@@ -273,14 +273,6 @@ def test_cli_refuses_platforms(setup, platform):
                                    "--platform", *platform))
 
 
-@pytest.mark.parametrize("flag", [["--train_bundle", "b"],
-                                  ["--import_run", "b", "o"]],
-                         ids=["train_bundle", "import_run"])
-def test_cli_refuses_the_training_bundle(setup, flag):
-    with pytest.raises(SystemExit, match="ROADMAP item 11b"):
-        export_model.main(cli_argv(setup, *flag))
-
-
 @pytest.mark.parametrize("gather", ["pallas", "pallas_bf16"])
 def test_cli_refuses_kernel_modes(setup, gather):
     with pytest.raises(SystemExit, match="cannot be exported"):
