@@ -31,9 +31,10 @@ kernel) and ``--checkpoint_dir``; ``predict --checkpoint_dir`` of net B
 (bitwise the map of ``--weights``) and net E, and a ``serve`` request
 from the checkpoint; ``XP.npy`` of the 64x48 scene in chunks against the
 plain gather; ``cli.train --num_iters 4 --fused_iters`` beside the serial
-loop and a bf16 fused epoch (times, idle shares, each seed's OA), and 3
-fused steps of 4 seeds against 3 serial steps of each, for CMLPL, CPS and
-CCT.  Then the
+loop, the same pair with ``--extra_loss memobank``, and a bf16 fused epoch
+(times, idle shares, each seed's OA), and 3 fused steps of 4 seeds
+against 3 serial steps of each, for CMLPL, CMLPL with the memory bank,
+CPS and CCT (functorch's per-example fallback an error).  Then the
 comparison zoo: kernel 1 (and kernel 2 once) at every zoo (w, C) at
 B = 512 and 45, both kernels at every zoo (w, C)'s edges (the cube's first
 and last windows, B = 1, a ragged last group, a cube based one element
@@ -42,7 +43,9 @@ bound and the library call's time; three
 supervised steps of each of the nine ``ZOO`` models
 on the card against the CPU; ``cli.train_backbone`` for each, 100 epochs
 at its defaults; and each model's mean OA against the JAX package's bank
-(``docs/zoo_jax_seeds.json``).  Then export, in a process of its own:
+(``docs/zoo_jax_seeds.json``).  Then export, in a process of its own,
+its exports and compiles beside the zoo's phases after the zoo's kernels,
+its maps and timings after the zoo:
 ``cli.export_model --verify --native_dir`` of the serving model's f32
 ``xla`` and ``dense`` maps and its bf16 ``xla`` map, each zip artifact's
 map bitwise its ``ScenePredictor`` map (the f32 ``xla`` one also the
@@ -50,13 +53,17 @@ kernel-1 map that ``--verify`` launches), and the native runner
 (``native/aoti_host.cpp``, built by ``g++`` in a thread from the start)
 one-shot on each bundle and in ``--serve`` with a bad request.  Then the
 training-run bundle: ``cli.export_model --train_bundle`` of the default
-20-epoch f32 CMLPL run, exported and compiled in a process of its own
-started with the smoke, which then holds one noise-off epoch of the
-exported program (``.module()``) to the eager trainer on the card and
-threefry2x32 on the card to the CPU; the bundle run by the runner
+20-epoch f32 CMLPL run and of its 2-epoch memory-bank run
+(``--extra_loss memobank``), exported and compiled in a process of its
+own started with the smoke, and beside it a second one that holds one
+noise-off epoch of the exported program (``.module()``) to the eager
+trainer on the card, threefry2x32 on the card to the CPU, and a one-step
+memory-bank program to the eager step on the same draws; the host's
+least available memory is watched throughout; the bundle run by the runner
 (``--inputs --outdir``) and in Python, the two held to each other, its
 outputs imported (``--import_run``) and mapped by ``predict
---checkpoint_dir``, the map's OA held to the eager run's.  Every
+--checkpoint_dir``, the map's OA held to the eager run's; the memory-bank
+bundle run by the runner, imported and mapped.  Every
 phase prints one JSON line, with ``at_s``, its process's seconds since it
 started; the card's name and power limit, then a ``kernels`` line
 (launches on the main path, error, times, bounds, launch plans and B = 1
@@ -79,7 +86,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1345,7 +1354,7 @@ def phase_extras(tmp, tscene, counter_fn, device):
     every augmentation; then one CMLPL step with stacked nets and one with
     two forwards from one state (noise and dropout off): the same losses
     and gradients within f32 rounding; and both step times with the
-    default config (no claim)."""
+    default config (no claim).  Returns each epoch's report by label."""
     from cmlpl_tpu_torch.cli import train as cli_train
     from cmlpl_tpu_torch.train.cmlpl import METRICS, CMLPLTrainer
     from cmlpl_tpu_torch.train.state import CMLPLConfig
@@ -1406,6 +1415,7 @@ def phase_extras(tmp, tscene, counter_fn, device):
                          "grad_max_diff_of_tensor_max": grad_err,
                          "ms_per_step_two_forwards": ms0,
                          "ms_per_step_stacked": ms1, "steps_timed": 20}})
+    return runs
 
 
 def phase_dense(params, cube, scene, tiled_map, tiled_map_s: float):
@@ -1818,9 +1828,8 @@ def phase_zoo_ab(ab, scene_npz) -> None:
 
 
 def run_zoo(cube, gt, device, flags_at_start, counter_fn):
-    """The slice-5 phases; returns (kernel report at the zoo's sites, each
-    kernel's B = 1 floor, kernel 1's training launches by model)."""
-    kernels, floors = phase_zoo_kernels(device)
+    """The slice-5 phases after the zoo's kernels (``phase_zoo_kernels``);
+    returns kernel 1's training launches by model."""
     scenes = phase_zoo_card_vs_cpu(cube, gt, device, flags_at_start)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_zoo_train(tmp, scenes, counter_fn)
@@ -1828,7 +1837,7 @@ def run_zoo(cube, gt, device, flags_at_start, counter_fn):
         phase_zoo_ab(*ab_inputs(tmp))
     require(tf32_flags() == flags_at_start,
             f"TF32 left at {tf32_flags()}, found at {flags_at_start}")
-    return kernels, floors, launches
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2069,7 +2078,10 @@ def fused_vs_serial_steps(trainer, tscene, seeds: int, steps: int):
     """``steps`` steps of ``seeds`` seeds from ``init_state((SEED, i))``,
     fused and one seed at a time: per seed (fused metrics, serial
     metrics, fused step-1 gradients, serial step-1 gradients, fused
-    params, serial params, serial gradient RMS)."""
+    params, serial params, serial gradient RMS, whether the generators
+    end equal, and for a memory-bank trainer whether the banks' counts
+    and pointers are equal and their rows' largest difference, else
+    None)."""
     li, ly, ui = seed_schedule(tscene.labels, seeds, steps)
     states = [trainer.init_state((SEED, i)) for i in range(seeds)]
     ms = trainer.stack_states(states)
@@ -2100,11 +2112,17 @@ def fused_vs_serial_steps(trainer, tscene, seeds: int, steps: int):
               for k in m1}
         sm = {k: torch.cat([s1[k], s2[k]]).cpu().numpy() for k in s1}
         fp = trainer.named_params(fused[i])
+        bank = None
+        if getattr(st, "bank", None) is not None:
+            bank = (all(torch.equal(getattr(fused[i].bank, f),
+                                    getattr(st.bank, f))
+                        for f in ("count", "ptr")),
+                    float((fused[i].bank.feats - st.bank.feats).abs().max()))
         out.append((fm, sm, fused_grads[i], grads,
                     [fp[n].detach().cpu() for n in names],
                     [named[n].detach().cpu() for n in names], rms,
                     torch.equal(fused[i].generator.get_state(),
-                                st.generator.get_state())))
+                                st.generator.get_state()), bank))
     return out
 
 
@@ -2131,13 +2149,22 @@ def seed_runs(lines):
 
 def phase_fused(tmp, tscene, counter_fn, device):
     """``cli.train --num_iters 4 --fused_iters --num_epochs 2`` beside the
-    serial ``--num_iters 4`` in this process, and one bf16 fused epoch:
-    training time, ms a seed-step, each seed's OA and the kernel launches
-    of each; 20 profiled steps of 4 fused seeds against 20 of one seed
-    (f32 and bf16).  Then 3 fused steps of 4 seeds against 3 serial steps
-    of each, for CMLPL, CPS and CCT, noise and dropout on, at the
-    card-vs-CPU bounds.  Returns kernel 1's and kernel 2's training
+    serial ``--num_iters 4`` in this process, the same pair with
+    ``--extra_loss memobank``, and one bf16 fused epoch: training time,
+    ms a seed-step, each seed's OA and the kernel launches of each; 20
+    profiled steps of 4 fused seeds against 20 of one seed (f32 and
+    bf16).  Then 3 fused steps of 4 seeds against 3 serial steps of each,
+    for CMLPL, CMLPL with the memory bank (the banks' counts and pointers
+    equal), CPS and CCT, noise and dropout on, at the card-vs-CPU bounds.
+    functorch's per-example fallback (an op with no batching rule) is an
+    error throughout.  Returns kernel 1's and kernel 2's training
     launches of the fused runs."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", "There is a performance drop")
+        return _phase_fused(tmp, tscene, counter_fn, device)
+
+
+def _phase_fused(tmp, tscene, counter_fn, device):
     from cmlpl_tpu_torch.cli import train as cli_train
     from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
     from cmlpl_tpu_torch.train import CCTTrainer, CMLPLTrainer, CPSTrainer
@@ -2145,8 +2172,11 @@ def phase_fused(tmp, tscene, counter_fn, device):
 
     seeds, epochs = 4, 2
     runs = {}
+    memobank = ["--extra_loss", "memobank"]
     for label, extra in (
             ("serial", []), ("fused", ["--fused_iters"]),
+            ("serial_memobank", memobank),
+            ("fused_memobank", ["--fused_iters", *memobank]),
             ("fused_bf16", ["--fused_iters", "--compute_dtype", "bfloat16"])):
         ep = 1 if label == "fused_bf16" else epochs
         for wrapper in WRAPPERS:
@@ -2172,10 +2202,12 @@ def phase_fused(tmp, tscene, counter_fn, device):
                        "launches_training": [list(map(int, x))
                                              for x in launched],
                        "launches_with_maps": list(counter_fn())}
-    require(runs["serial"]["launches_training"] == [[1, 0]] * seeds,
-            f"serial launches {runs['serial']['launches_training']}")
-    require(runs["fused"]["launches_training"] == [[1, 0]],
-            f"fused launches {runs['fused']['launches_training']}")
+    for label in ("serial", "serial_memobank"):
+        require(runs[label]["launches_training"] == [[1, 0]] * seeds,
+                f"{label} launches {runs[label]['launches_training']}")
+    for label in ("fused", "fused_memobank"):
+        require(runs[label]["launches_training"] == [[1, 0]],
+                f"{label} launches {runs[label]['launches_training']}")
     require(runs["fused_bf16"]["launches_training"] == [[0, 1]],
             f"bf16 fused launches {runs['fused_bf16']['launches_training']}")
 
@@ -2189,15 +2221,19 @@ def phase_fused(tmp, tscene, counter_fn, device):
 
     # fused vs serial steps, noise and dropout on
     holds = {}
-    for algo, cls in (("cmlpl", CMLPLTrainer), ("cps", CPSTrainer),
-                      ("cct", CCTTrainer)):
-        trainer = cls(CMLPLConfig(gather_impl="pool"), device=device)
+    for algo, cls, extra in (
+            ("cmlpl", CMLPLTrainer, {}),
+            ("cmlpl_memobank", CMLPLTrainer, {"extra_loss": "memobank"}),
+            ("cps", CPSTrainer, {}), ("cct", CCTTrainer, {})):
+        trainer = cls(CMLPLConfig(gather_impl="pool", **extra), device=device)
         adams = 2 if algo == "cct" else 1
         worst = {}
-        for i, (fm, sm, fg, sg, fp, sp, rms, same_gen) in enumerate(
+        for i, (fm, sm, fg, sg, fp, sp, rms, same_gen, bank) in enumerate(
                 fused_vs_serial_steps(trainer, tscene, seeds, 3)):
             what = f"fused {algo} seed {i}"
             require(same_gen, f"{what}: generators differ after the steps")
+            require(bank is None or bank[0],
+                    f"{what}: the banks' counts or pointers differ")
             grad_err = grad_gap(fg, sg)
             param_err, held = param_gap(
                 [(a - b).abs().max() for a, b in zip(fg, sg)], fp, sp, rms,
@@ -2208,12 +2244,16 @@ def phase_fused(tmp, tscene, counter_fn, device):
                 k: float(np.abs(fm[k] - sm[k]).max()) for k in fm},
                 "step1_grad_max_diff_of_tensor_max": grad_err,
                 "params": param_err}
+            if bank is not None:
+                worst[i]["bank_rows_max_abs_diff"] = bank[1]
         holds[algo] = worst
     emit({"phase": "fused", "seeds": seeds, "runs": runs,
           "profiled_windows": windows, "fused_vs_serial_3_steps": holds,
           "note": "ms_per_seed_step: training time over seeds x steps; "
                   "idle share over 20 steps (fused: 20 steps of 4 seeds)"})
     return {"fused_f32": runs["fused"]["launches_training"][0][0],
+            "fused_memobank":
+            runs["fused_memobank"]["launches_training"][0][0],
             "fused_bf16": runs["fused_bf16"]["launches_training"][0][1],
             "shapes": fused_pool_kernels(tscene, seeds, epochs)}
 
@@ -2310,7 +2350,15 @@ def serve_session(host, bundle, good, bad_cube, spectra, tmp):
     return lines, [np.load(outs[i]) for i in (0, 1, 3)]
 
 
-def run_export(tmp, host_build_s: float) -> dict:
+def wait_for(path: str, timeout: float = 1200.0) -> None:
+    """Waits until ``path`` exists, the parent process's signal."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        require(time.perf_counter() - t0 < timeout, f"no signal at {path}")
+        time.sleep(0.5)
+
+
+def run_export(tmp, host_build_s, gate) -> dict:
     """The export phase at PaviaU width with the smoke's weights:
     ``cli.export_model --verify --native_dir`` in ``xla`` and ``dense`` (f32)
     and ``xla`` with ``--compute_dtype bfloat16``; each zip artifact's map
@@ -2318,7 +2366,10 @@ def run_export(tmp, host_build_s: float) -> dict:
     ``xla`` one bitwise the kernel-1 map (``--verify`` under ``auto``, 406
     launches counted); the runner one-shot on each bundle (``--repeat
     5``), its f32 labels tie-safe to the kernel map (dense: to the dense
-    map); a ``--serve`` session.  Returns the phase's kernel-1 launches."""
+    map); a ``--serve`` session.  The exports and their compiles run
+    first, beside the parent's phases; the maps, the artifacts' and the
+    runner's timings once the file ``gate`` exists (the parent has left
+    the card).  Returns the phase's kernel-1 launches."""
     from cmlpl_tpu_torch.cli._common import logits_fn
     from cmlpl_tpu_torch.data.io import synthetic_scene
     from cmlpl_tpu_torch.data.prep import prepare_scene
@@ -2368,6 +2419,22 @@ def run_export(tmp, host_build_s: float) -> dict:
     bad_npy = os.path.join(tmp, "bad_cube.npy")
     np.save(bad_npy, scene.padded_pca[:100].cpu().numpy())
 
+    host = build_host()
+    # the exports and their compiles (host work), beside the parent's
+    # phases; --verify maps once each on the card
+    clis = {}
+    launches = 0    # kernel 1 on the phase's path: each --verify's map
+    for name, extra in EXPORT_RUNS:
+        cli = export_cli(common + extra + [
+            "--out", os.path.join(tmp, f"{name}.cmlpl.zip"), "--verify",
+            "--native_dir", os.path.join(tmp, f"bundle_{name}")], counter_fn)
+        expect = (0, 0) if name == "dense" else (tiles, 0)
+        require(tuple(cli["verify_launches"].values()) == expect,
+                f"export {name}: --verify launched {cli['verify_launches']}")
+        launches += cli["verify_launches"]["gather_patches_f32"]
+        clis[name] = cli
+    wait_for(gate)
+
     # the in-process maps the artifacts are held to
     for wrapper in (gather_patches_f32, gather_patches_bf16):
         wrapper.launches = 0
@@ -2391,21 +2458,13 @@ def run_export(tmp, host_build_s: float) -> dict:
     logits_at = {"xla": tiled_logits(apply, scene),
                  "dense": lambda ids: dense_logits[torch.from_numpy(ids)]}
 
-    host = build_host()
     report = {"torch_version": torch.__version__,
-              "runner_build_s": host_build_s, "tiles": tiles,
+              "runner_build_s": float(host_build_s), "tiles": tiles,
               "pallas_map_s": kernel_map_s, "runs": {}}
-    launches = 0    # kernel 1 on the phase's path: each --verify's map
-    for name, extra in EXPORT_RUNS:
+    for name, _ in EXPORT_RUNS:
         out = os.path.join(tmp, f"{name}.cmlpl.zip")
         bundle = os.path.join(tmp, f"bundle_{name}")
-        cli = export_cli(common + extra + ["--out", out, "--verify",
-                                           "--native_dir", bundle],
-                         counter_fn)
-        expect = (0, 0) if name == "dense" else (tiles, 0)
-        require(tuple(cli["verify_launches"].values()) == expect,
-                f"export {name}: --verify launched {cli['verify_launches']}")
-        launches += cli["verify_launches"]["gather_patches_f32"]
+        cli = clis[name]
         meta, fn = load_exported(out)
         fn(scene.padded_pca, scene.spectra)
         torch.cuda.synchronize()
@@ -2447,37 +2506,15 @@ def run_export(tmp, host_build_s: float) -> dict:
     return {"launches": launches}
 
 
-EXPORT = """
-import json, sys
-sys.path.insert(0, sys.argv[1])
-import chip_smoke as cs
-print(json.dumps(cs.run_export(sys.argv[2], float(sys.argv[3]))), flush=True)
-"""
-
-
-def export_in_child(tmp, host_build_s: float) -> dict:
-    """:func:`run_export` in a new process, its phase line printed here:
-    Inductor's compiles and the runner's processes stay out of this one."""
-    torch.cuda.empty_cache()
-    out = subprocess.run([sys.executable, "-c", EXPORT, ROOT, tmp,
-                          str(host_build_s)],
-                         capture_output=True, text=True, timeout=900)
-    result = [ln for ln in out.stdout.splitlines()
-              if ln.startswith('{"launches": ')]
-    for line in out.stdout.splitlines():
-        if line.startswith("{") and line not in result:
-            print(line, flush=True)
-    require(out.returncode == 0 and len(result) == 1,
-            f"the export phase failed: {out.stdout[-2000:]}\n"
-            f"{out.stderr[-4000:]}")
-    return json.loads(result[0])
-
-
 # --------------------------------------------------------------------------
 # slice 9: the training-run bundle
 # --------------------------------------------------------------------------
 
 BUNDLE_STEPS = TRAIN_EPOCHS * 78
+# the memory-bank bundle: the default run with the bank, its depth cut to
+# 2 epochs (156 steps) for the smoke's time, its width not
+MEMOBANK_BUNDLE = ("--extra_loss", "memobank", "--num_epochs", "2")
+MEMOBANK_BUNDLE_STEPS = 2 * 78
 # the bundle's map may lose at most this many OA points to the eager run's
 # (the same initial state and schedule, other random streams: the two
 # runs are equal in distribution only)
@@ -2492,6 +2529,29 @@ class FirstBatch:
 
     def epoch(self):
         yield self.batch
+
+
+def adam_moment(lf, side: dict, kind: str):
+    """The Adam moment ``kind`` ("mu" or "nu") of the param leaf ``lf`` in
+    a run's outputs ``side`` (flax layout, by bundle name), and its
+    count."""
+    net = lf.name.split(".")[1]
+    rest = lf.name.split(".params.", 1)[1]
+    count = float(side[f"state.{net}.opt_state.0.count"])
+    return side[f"state.{net}.opt_state.0.{kind}.{rest}"], count
+
+
+def moment_grad(lf, side: dict):
+    """The bias-corrected first moment of ``lf``: after one step, its
+    gradient."""
+    mu, count = adam_moment(lf, side, "mu")
+    return mu / (1 - 0.9 ** count)
+
+
+def moment_rms(lf, side: dict):
+    """The bias-corrected gradient RMS of ``lf``."""
+    nu, count = adam_moment(lf, side, "nu")
+    return (nu / (1 - 0.999 ** count)).sqrt()
 
 
 def bundle_vs_eager_epoch(tscene) -> dict:
@@ -2571,31 +2631,18 @@ def bundle_vs_eager_epoch(tscene) -> dict:
 
     params = [lf for lf in leaves if lf.kind == "param"]
 
-    def opt(lf, side, kind):
-        net = lf.name.split(".")[1]
-        rest = lf.name.split(".params.", 1)[1]
-        count = float(side[f"state.{net}.opt_state.0.count"])
-        return side[f"state.{net}.opt_state.0.{kind}.{rest}"], count
-
-    def grad(lf, side):
-        mu, count = opt(lf, side, "mu")
-        return mu / (1 - 0.9 ** count)
-
-    def rms(lf, side):
-        nu, count = opt(lf, side, "nu")
-        return (nu / (1 - 0.999 ** count)).sqrt()
-
     require(all(float(s[f"state.{n}.opt_state.0.count"]) == 1
                 for s in (got1, want1) for n in ("net_b", "net_e")),
             "the one-step runs took another number of steps")
-    gc = [grad(lf, got1) for lf in params]
-    gh = [grad(lf, want1) for lf in params]
+    gc = [moment_grad(lf, got1) for lf in params]
+    gh = [moment_grad(lf, want1) for lf in params]
     grad_err = grad_gap(gc, gh)
     pc = [got[lf.name] for lf in params]
     ph = [want[lf.name] for lf in params]
     param_err, held = param_gap(
         [(a - b).abs().max() for a, b in zip(gc, gh)], pc, ph,
-        [rms(lf, want) for lf in params], [rms(lf, got) for lf in params],
+        [moment_rms(lf, want) for lf in params],
+        [moment_rms(lf, got) for lf in params],
         1, cfg.lr)
     loss_err = {k: float(np.abs(mc[k] - mh[k]).max()) for k in mc}
     report = {"phase": "train_bundle_vs_eager", "steps": 78,
@@ -2607,11 +2654,11 @@ def bundle_vs_eager_epoch(tscene) -> dict:
               "step1_grads_bitwise": all(torch.equal(a, b)
                                          for a, b in zip(gc, gh)),
               "first_moment_max_diff_of_tensor_max": grad_gap(
-                  [grad(lf, got) for lf in params],
-                  [grad(lf, want) for lf in params]),
+                  [moment_grad(lf, got) for lf in params],
+                  [moment_grad(lf, want) for lf in params]),
               "eager_vs_eager_first_moment_max_diff_of_tensor_max":
-              grad_gap([grad(lf, again) for lf in params],
-                       [grad(lf, want) for lf in params]),
+              grad_gap([moment_grad(lf, again) for lf in params],
+                       [moment_grad(lf, want) for lf in params]),
               "eager_vs_eager_params_max_abs_diff": max(
                   float((again[lf.name] - want[lf.name]).abs().max())
                   for lf in params),
@@ -2644,22 +2691,117 @@ def threefry_card_vs_cpu() -> dict:
     return report
 
 
-def run_train_bundle_child(tmp) -> dict:
-    """The training bundle's build, in a process of its own started with
-    the smoke: (b) ``cli.export_model --train_bundle`` of the default
-    20-epoch f32 CMLPL run at PaviaU width (its export and AOTInductor
-    compile), then (a) :func:`bundle_vs_eager_epoch` and (d)
-    :func:`threefry_card_vs_cpu`.  Returns the bundle's path and the
-    export's numbers."""
-    from cmlpl_tpu_torch.cli import export_model
-    from cmlpl_tpu_torch.data.io import synthetic_scene
-    from cmlpl_tpu_torch.data.prep import prepare_scene
+def bundle_memobank_step_vs_eager(tscene) -> dict:
+    """(e) The memory-bank run program's first step against one eager
+    step on the same draws, on the card, noise and dropout on: a one-step
+    program (``.module()``) of the default config with
+    ``extra_loss="memobank"`` on the default schedule's first batch, net E
+    sharpened (its classifier times 30, so that the bank has anchors and
+    its term a gradient), against the eager trainer's step whose draws
+    come from the program's first ``CounterStream``.  The step-1
+    gradients (the bias-corrected first moments) within
+    ``CARD_CPU_GRAD_TOL`` of each tensor's largest, as
+    :func:`bundle_vs_eager_epoch` holds them; the banks' counts and
+    pointers equal."""
+    from cmlpl_tpu_torch.core.rng import CounterStream
+    from cmlpl_tpu_torch.data.patches import gather_patches
+    from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.device import compute_precision
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.driver import Apply
+    from cmlpl_tpu_torch.train.functional import StateLayout
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+    from cmlpl_tpu_torch.utils.export import build_run_exported
 
-    bundle = os.path.join(tmp, "bundle")
+    device = torch.device("cuda")
+    trainer = CMLPLTrainer(CMLPLConfig(num_epochs=1, gather_impl="pool",
+                                       extra_loss="memobank"), device=device)
+    init_state = trainer.init_state
+
+    def sharpened(seed):
+        state = init_state(seed)
+        with torch.no_grad():
+            for p in state.net_e.model.classifier.parameters():
+                p.mul_(30)
+        return state
+
+    trainer.init_state = sharpened
+    labels = tscene.labels
+    sampler = FirstBatch(SemiSupervisedSampler(
+        generate_splits(labels, num_label=5), labels, 128, 128, 10000,
+        seed=1088))
+    t0 = time.perf_counter()
+    meta, exported, inputs = build_run_exported(trainer, tscene, sampler,
+                                                (SEED, 0))
+    export_s = time.perf_counter() - t0
+    args = [torch.from_numpy(np.array(v)).to(device)
+            for v in inputs.values()]
+    with compute_precision(meta["compute_dtype"]):
+        outs = exported.module()(*args)
+    got = {n: o.cpu() for n, o in zip(meta["output_names"], outs)}
+
+    state = trainer.init_state((SEED, 0))
+    li, ly, ui = (torch.from_numpy(np.asarray(a)).to(device)
+                  for a in sampler.batch)
+    xp_l, xp_u = (gather_patches(tscene.padded_pca, i.int(),
+                                 cols=tscene.cols, w=W) for i in (li, ui))
+    x_l, x_u = (tscene.spectra.index_select(0, i.long()) for i in (li, ui))
+    key = args[meta["input_names"].index("state.rng")]
+    thr = args[meta["input_names"].index("extra0")][0]
+    with compute_precision("float32"):
+        d = trainer._draws(CounterStream(key, 0), xp_l, x_l, xp_u, x_u,
+                           ly.long())
+        carry = trainer._carry(state)
+        loss, metrics, writes = trainer._losses(
+            Apply(torch.nn.ModuleDict(trainer._modules(state))), d,
+            ly.long(), carry, 0, 0, thr)
+        trainer._update(state, loss, *trainer._opts(state))
+        trainer._write(carry, writes)
+    layout = StateLayout(trainer, state, np.zeros(2, np.uint32))
+    want = {lf.name: torch.from_numpy(np.asarray(v))
+            for lf, v in zip(layout.leaves, layout.values)}
+    params = [lf for lf in layout.leaves if lf.kind == "param"]
+    grad_err = grad_gap([moment_grad(lf, got) for lf in params],
+                        [moment_grad(lf, want) for lf in params])
+    bank_equal = all(torch.equal(got[f"state.bank.{f}"],
+                                 want[f"state.bank.{f}"])
+                     for f in ("count", "ptr"))
+    extra = (float(got["metrics.extra_loss"].reshape(-1)[0]),
+             float(metrics["extra_loss"]))
+    report = {"phase": "train_bundle_memobank_vs_eager", "steps": 1,
+              "export_s": export_s,
+              "step1_grad_max_diff_of_tensor_max": grad_err,
+              "bank_count_ptr_equal": bank_equal,
+              "bank_count": got["state.bank.count"].tolist(),
+              "bank_rows_max_abs_diff": float(
+                  (got["state.bank.feats"]
+                   - want["state.bank.feats"]).abs().max()),
+              "extra_loss_program_eager": extra,
+              "loss_max_abs_diff": {
+                  k: abs(float(got[f"metrics.{k}"].reshape(-1)[0])
+                         - float(v)) for k, v in metrics.items()}}
+    emit(report)
+    require(grad_err <= CARD_CPU_GRAD_TOL,
+            f"memobank program vs eager step: step-1 gradients {grad_err}")
+    require(bank_equal, "memobank program vs eager step: the banks' counts "
+            "or pointers differ")
+    require(extra[1] > 0 and int(got["state.bank.count"].sum()) > 0,
+            f"the bank took no part in the step: {report}")
+    return report
+
+
+def export_train_bundle(tmp, name: str, extra=()) -> dict:
+    """``cli.export_model --train_bundle <tmp>/<name>`` at PaviaU width
+    with the training flags ``extra``; returns its path and its numbers
+    (export and AOTInductor compile s, MB)."""
+    from cmlpl_tpu_torch.cli import export_model
+
+    bundle = os.path.join(tmp, name)
     t0 = time.perf_counter()
     _, lines, _ = run_cli(export_model.main, [
-        "--dataID", str(DATA_ID), "--data_root", tmp, "--train_bundle",
-        bundle], lambda: (0, 0))
+        "--dataID", str(DATA_ID), "--data_root", tmp, *extra,
+        "--train_bundle", bundle], lambda: (0, 0))
     wall_s = time.perf_counter() - t0
     text = "\n".join(lines)
     found = re.search(
@@ -2667,71 +2809,101 @@ def run_train_bundle_child(tmp) -> dict:
         r"(\d+) outputs, platforms=\['cuda'\] export_s=([0-9.]+) "
         r"aoti_compile_s=([0-9.]+)", text)
     require(found is not None, f"export_model --train_bundle: {lines}")
-    export = {"bundle_mb": float(found.group(1)),
+    export = {"flags": list(extra), "bundle_mb": float(found.group(1)),
               "inputs": int(found.group(2)),
               "inputs_mb": float(found.group(3)),
               "outputs": int(found.group(4)),
               "export_s": float(found.group(5)),
               "aoti_compile_s": float(found.group(6)), "cli_wall_s": wall_s}
-    for name in ("model.pt2", "signature.txt", "meta.json", "inputs"):
-        require(os.path.exists(os.path.join(bundle, name)),
-                f"the bundle has no {name}")
-    emit({"phase": "train_bundle_export", **export})
+    for part in ("model.pt2", "signature.txt", "meta.json", "inputs"):
+        require(os.path.exists(os.path.join(bundle, part)),
+                f"the bundle {name} has no {part}")
+    emit({"phase": "train_bundle_export", "bundle": name, **export})
+    return {"bundle": bundle, "export": export}
+
+
+def run_train_bundle_child(tmp) -> dict:
+    """The training bundles' builds (b): ``cli.export_model
+    --train_bundle`` of the default 20-epoch f32 CMLPL run at PaviaU width
+    and then of its 2-epoch memory-bank run (``--extra_loss memobank``),
+    each exported and compiled by AOTInductor.  Returns the bundles'
+    paths and the exports' numbers."""
+    default = export_train_bundle(tmp, "bundle")
+    memobank = export_train_bundle(tmp, "bundle_memobank", MEMOBANK_BUNDLE)
+    return {"bundle": default["bundle"], "export": default["export"],
+            "memobank": memobank}
+
+
+def run_bundle_checks_child() -> dict:
+    """The run program's checks that need no compiled bundle: (a)
+    :func:`bundle_vs_eager_epoch`, (d) :func:`threefry_card_vs_cpu` and
+    (e) :func:`bundle_memobank_step_vs_eager`.  Returns what the
+    ``train_bundle`` phases report of them."""
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+
     cube, gt = synthetic_scene(DATA_ID)
     tscene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
                            n_pc=N_PC, device=torch.device("cuda"))
     epoch = bundle_vs_eager_epoch(tscene)
     bits = threefry_card_vs_cpu()
-    return {"bundle": bundle, "export": export,
-            "vs_eager_bitwise_params": epoch["bitwise_params"],
-            "threefry_card_equals_cpu": bits["card_equals_cpu"]}
+    step = bundle_memobank_step_vs_eager(tscene)
+    return {"vs_eager_bitwise_params": epoch["bitwise_params"],
+            "threefry_card_equals_cpu": bits["card_equals_cpu"],
+            "memobank_step1_grad_max_diff_of_tensor_max":
+            step["step1_grad_max_diff_of_tensor_max"]}
 
 
-TRAIN_BUNDLE = """
+CHILD = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
-print(json.dumps({"train_bundle": cs.run_train_bundle_child(sys.argv[2])}),
+print(json.dumps({"child": getattr(cs, sys.argv[2])(*sys.argv[3:])}),
       flush=True)
 """
 
 
-def start_train_bundle_child(tmp):
-    """:func:`run_train_bundle_child` started in a new process at a lower
-    priority and with 4 compile workers, so the first AOTInductor compile
-    of the training program (minutes) runs beside the phases before it
-    and leaves them most of the host; its output goes to files in
-    ``tmp``."""
+def start_child(tmp, fn: str, *args, nice: int = 10):
+    """``chip_smoke.<fn>(*args)`` (string arguments) started in a new
+    process, by default at a lower priority and with 4 compile workers, so
+    its exports and AOTInductor compiles (minutes) run beside the phases
+    of this one and leave them most of the host; its output goes to files
+    in ``tmp``.  Returns (the process, ``tmp``, ``fn``)."""
+    os.makedirs(tmp, exist_ok=True)
     out = open(os.path.join(tmp, "child.out"), "w")
     err = open(os.path.join(tmp, "child.err"), "w")
-    env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="4")
-    proc = subprocess.Popen(["nice", "-n", "10", sys.executable, "-c",
-                             TRAIN_BUNDLE, ROOT, tmp], stdout=out,
-                            stderr=err, env=env, text=True)
+    env = dict(os.environ)
+    if nice:
+        env["TORCHINDUCTOR_COMPILE_THREADS"] = "4"
+    proc = subprocess.Popen(["nice", "-n", str(nice), sys.executable, "-c",
+                             CHILD, ROOT, fn, *map(str, args)],
+                            stdout=out, stderr=err, env=env, text=True)
     out.close()
     err.close()
-    return proc
+    return proc, tmp, fn
 
 
-def finish_train_bundle_child(proc, tmp) -> dict:
-    """Waits for the child (at most 900 s more), prints its phase lines and
-    returns its result."""
-    rc = proc.wait(timeout=900)
+def finish_child(child, timeout: float = 900) -> dict:
+    """Waits for a :func:`start_child` process (at most ``timeout`` s
+    more), prints its phase lines and returns its result."""
+    proc, tmp, fn = child
+    rc = proc.wait(timeout=timeout)
     with open(os.path.join(tmp, "child.out")) as f:
         lines = f.read().splitlines()
-    result = [ln for ln in lines if ln.startswith('{"train_bundle": ')]
+    result = [ln for ln in lines if ln.startswith('{"child": ')]
     for line in lines:
         if line.startswith("{") and line not in result:
             print(line, flush=True)
     with open(os.path.join(tmp, "child.err")) as f:
         err = f.read()
     require(rc == 0 and len(result) == 1,
-            f"the train_bundle child failed (rc {rc}): {lines[-5:]}\n"
+            f"the {fn} child failed (rc {rc}): {lines[-5:]}\n"
             f"{err[-4000:]}")
-    return json.loads(result[0])["train_bundle"]
+    return json.loads(result[0])["child"]
 
 
-def phase_train_bundle(child: dict, tmp, eager: dict, counter_fn) -> dict:
+def phase_train_bundle(child: dict, tmp, eager: dict, eager_memobank: dict,
+                       counter_fn) -> dict:
     """(b) The 20-epoch bundle run by the C++ runner (``--inputs
     --outdir``, twice) and by ``torch._inductor.aoti_load_package`` in
     Python; (c) ``--import_run`` of the runner's outputs and ``predict
@@ -2741,7 +2913,11 @@ def phase_train_bundle(child: dict, tmp, eager: dict, counter_fn) -> dict:
     bitwise or, where cuDNN's run-to-run rounding parts them (its weight-
     gradient sums change order; Adam carries it through 1,560 steps),
     step 0's metrics within the card-vs-CPU loss bounds and the Python
-    run's map at the same OA bound.  Returns the map's kernel-1 launches."""
+    run's map at the same OA bound.  Then (f) the 2-epoch memory-bank
+    bundle by the runner (twice), beside the eager memory-bank epoch's
+    ``ms_per_step`` (``eager_memobank``), imported and mapped: finite
+    outputs, the bank filled, OA net B over 50.  Returns the maps' kernel-1
+    launches."""
     import torch._inductor
 
     from cmlpl_tpu_torch.cli import export_model
@@ -2856,7 +3032,69 @@ def phase_train_bundle(child: dict, tmp, eager: dict, counter_fn) -> dict:
         require(a is None or a.oa >= eager["oa"] - BUNDLE_OA_SLACK,
                 f"the bundle's OA by the {name} {a and a.oa} < eager OA "
                 f"{eager['oa']} - {BUNDLE_OA_SLACK}")
-    return {"predict": launches[0]}
+
+    # (f) the memory-bank bundle
+    memo = child["memobank"]
+    with open(os.path.join(memo["bundle"], "meta.json")) as f:
+        mmeta = json.load(f)
+    require(mmeta["num_epochs"] * mmeta["batches_per_epoch"]
+            == MEMOBANK_BUNDLE_STEPS, f"memobank meta {mmeta}")
+    require("state.bank.count" in mmeta["input_names"],
+            "the memobank bundle carries no bank")
+    out_memo = os.path.join(tmp, "runner_memobank_out")
+    mrunner = run_host_io(memo["bundle"], os.path.join(memo["bundle"],
+                                                       "inputs"),
+                          out_memo, repeat=2, timeout=600)
+    mout = {n: np.load(os.path.join(out_memo, n + ".npy"))
+            for n in mmeta["output_names"]}
+    for n, v in mout.items():
+        require(np.all(np.isfinite(v)), f"memobank runner output {n} "
+                "not finite")
+    bank_count = mout["state.bank.count"]
+    flags_memo = flags + list(MEMOBANK_BUNDLE)
+    ck_memo = os.path.join(tmp, "ckpt_memobank")
+    run_cli(export_model.main, flags_memo + [
+        "--import_run", memo["bundle"], out_memo, "--checkpoint_dir",
+        ck_memo], counter_fn)
+    mpred, mlaunches = predict_map(flags + [
+        "--checkpoint_dir", ck_memo, "--net", "b", "--n_PC", str(N_PC),
+        "--w", str(W), "--val_batch_size", str(TILE),
+        "--out", os.path.join(tmp, "bundle_memobank_map.svg")], counter_fn)
+    macc = cal_accuracy(mpred[splits.test], labels[splits.test] - 1)
+    mhist = mout["metrics.cls_loss"].mean(axis=1)
+    mreport = {"phase": "train_bundle_memobank", "card":
+               card_name_and_power(), "steps": MEMOBANK_BUNDLE_STEPS,
+               **memo["export"], "runner": mrunner,
+               "ms_per_step": mrunner["run_ms_min"] / MEMOBANK_BUNDLE_STEPS,
+               "eager_memobank_epoch_ms_per_step":
+               eager_memobank["ms_per_step"],
+               "step1_grad_max_diff_of_tensor_max":
+               child["memobank_step1_grad_max_diff_of_tensor_max"],
+               "bank_count": bank_count.tolist(),
+               "extra_loss_by_epoch":
+               mout["metrics.extra_loss"].mean(axis=1).tolist(),
+               "cls_loss_by_epoch": mhist.tolist(),
+               "oa_bundle_net_b": macc.oa, "predict_launches": mlaunches,
+               "note": "ms_per_step: the runner's run_ms_min over the "
+                       "run's steps; the eager figure is phase extras' "
+                       "one memobank epoch of cli.train"}
+    emit(mreport)
+    require(mlaunches == (406, 0), f"memobank predict launches {mlaunches}")
+    require(int(bank_count.sum()) > 0, "the memobank run filled no bank")
+    require(macc.oa > 0.5, f"the memobank bundle's OA {macc.oa}")
+    return {"predict": launches[0], "predict_memobank": mlaunches[0]}
+
+
+def watch_host_memory(low: list, stop: threading.Event) -> None:
+    """Keeps in ``low`` (GiB, at_s) the least ``MemAvailable`` of the host
+    seen every 2 s until ``stop``: the smoke runs up to four processes
+    that trace and compile at once."""
+    while not stop.wait(2.0):
+        with open("/proc/meminfo") as f:
+            avail = next(int(ln.split()[1]) for ln in f
+                         if ln.startswith("MemAvailable:"))
+        if not low or avail / 2 ** 20 < low[0]:
+            low[:] = [avail / 2 ** 20, time.perf_counter() - T_IMPORT]
 
 
 def timed_build(build):
@@ -2900,19 +3138,29 @@ def main() -> int:
     # phases before it run
     host_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
     host_build = host_pool.submit(timed_build, build_host)
+    memory_low, stop_watch = [], threading.Event()
+    threading.Thread(target=watch_host_memory, args=(memory_low, stop_watch),
+                     daemon=True).start()
 
-    # the training bundle's export and first AOTInductor compile (minutes)
-    # run in a process of their own beside the phases before it
-    bundle_tmp = tempfile.mkdtemp(prefix="train_bundle_")
-    bundle_child = start_train_bundle_child(bundle_tmp)
+    # the training bundles' exports and AOTInductor compiles (minutes), and
+    # the run program's checks that need no compiled bundle, run in two
+    # processes of their own beside the phases before them; the export
+    # phase's child starts beside the zoo
+    child_tmp = tempfile.mkdtemp(prefix="smoke_children_")
+    children = [start_child(os.path.join(child_tmp, "bundles"),
+                            "run_train_bundle_child",
+                            os.path.join(child_tmp, "bundles")),
+                start_child(os.path.join(child_tmp, "checks"),
+                            "run_bundle_checks_child")]
 
-    def stop_bundle_child():
-        if bundle_child.poll() is None:
-            bundle_child.kill()
-            bundle_child.wait()
-        shutil.rmtree(bundle_tmp, ignore_errors=True)
+    def stop_children():
+        for proc, _, _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(child_tmp, ignore_errors=True)
 
-    atexit.register(stop_bundle_child)
+    atexit.register(stop_children)
 
     # 1. build
     t0 = time.perf_counter()
@@ -3140,7 +3388,7 @@ def main() -> int:
                                                    algo)
         bf16_launches = phase_train_bf16(tmp, tscene, counter_fn)
         resume_launches = phase_resume(tmp, counter_fn, device)
-        phase_extras(tmp, tscene, counter_fn, device)
+        extras = phase_extras(tmp, tscene, counter_fn, device)
         # slice 7: prep, a profiled run served from its checkpoint, and
         # fused multi-seed runs, in a process of their own
         slice7 = slice7_in_child(os.path.join(tmp, "slice7"))
@@ -3153,26 +3401,35 @@ def main() -> int:
     require(tf32_flags() == flags_at_start,
             f"TF32 left at {tf32_flags()}, found at {flags_at_start}")
 
-    # 6. the comparison zoo (slice 5): kernel 1 at the zoo's shapes, each
-    # model's steps on the card vs the CPU, cli.train_backbone for each,
-    # and the OA A/B against the JAX package's bank
-    zoo_kernels, zoo_floors, zoo_launches = run_zoo(
-        cube, gt, device, flags_at_start, counter_fn)
-
-    # 7. export (slice 8): the zip artifacts and the native runner's bundles
-    # of the f32 xla, dense and bf16 maps, in a process of their own
+    # 6. the comparison zoo (slice 5): kernel 1 at the zoo's shapes; then
+    # 7. export (slice 8): the zip artifacts and the native runner's
+    # bundles of the f32 xla, dense and bf16 maps, in a process of their
+    # own started now, its exports and compiles beside the zoo's other
+    # phases (each model's steps on the card vs the CPU,
+    # cli.train_backbone for each, the OA A/B against the JAX package's
+    # bank), its maps and timings after them
+    zoo_kernels, zoo_floors = phase_zoo_kernels(device)
     _, host_build_s = host_build.result()
     host_pool.shutdown()
-    with tempfile.TemporaryDirectory() as tmp:
-        export = export_in_child(os.path.join(tmp, "export"), host_build_s)
+    torch.cuda.empty_cache()    # this process's cached blocks, for it
+    export_gate = os.path.join(child_tmp, "export", "go")
+    export_child = start_child(os.path.join(child_tmp, "export"),
+                               "run_export",
+                               os.path.join(child_tmp, "export", "run"),
+                               host_build_s, export_gate, nice=0)
+    children.append(export_child)
+    zoo_launches = run_zoo(cube, gt, device, flags_at_start, counter_fn)
+    open(export_gate, "w").close()     # the export's timings may start
+    export = finish_child(export_child)
 
-    # 8. the training-run bundle (slice 9): the 20-epoch CMLPL run as one
-    # program, run by the runner and in Python, imported and mapped
-    child = finish_train_bundle_child(bundle_child, bundle_tmp)
+    # 8. the training-run bundles (slices 9 and 10): the 20-epoch CMLPL
+    # run as one program, run by the runner and in Python, imported and
+    # mapped; the 2-epoch memory-bank run by the runner, imported, mapped
+    child = {**finish_child(children[0]), **finish_child(children[1])}
     with tempfile.TemporaryDirectory() as tmp:
         bundle_launches = phase_train_bundle(child, tmp, eager_cmlpl,
-                                             counter_fn)
-    stop_bundle_child()
+                                             extras["memobank"], counter_fn)
+    stop_children()
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"]
                 + export["launches"],
@@ -3191,9 +3448,15 @@ def main() -> int:
             "(pool), training": prep["train"],
             "cli.train --num_iters 4 --fused_iters, 2 epochs (one pool for "
             "the 4 seeds), training": fused["fused_f32"],
+            "cli.train --num_iters 4 --fused_iters --extra_loss memobank, "
+            "2 epochs (one pool for the 4 seeds), training":
+            fused["fused_memobank"],
             "cli.predict --checkpoint_dir --net b, one map": prep["map"],
             "cli.predict --checkpoint_dir of the imported training-bundle "
-            "run, one map": bundle_launches["predict"]},
+            "run, one map": bundle_launches["predict"],
+            "cli.predict --checkpoint_dir of the imported memobank "
+            "training-bundle run, one map":
+            bundle_launches["predict_memobank"]},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
             per_step["pallas_bf16"]["launches_training"][1],
@@ -3236,7 +3499,9 @@ def main() -> int:
                         "launches_train": launches_train[name],
                         "train_shapes": train_gather[name]
                         | fused["shapes"][name] | zoo_kernels[name]})
-    emit({"total_s": time.perf_counter() - t_start, "card": card})
+    stop_watch.set()
+    emit({"total_s": time.perf_counter() - t_start, "card": card,
+          "host_mem_available_min_gib_at_s": memory_low})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,8 +40,9 @@ for ``--seed``, the scene, the pool and the schedule.  ``--import_run``
 turns a run's outputs into ``<CK>/<step>/state.npz``, from which
 ``predict``/``serve --checkpoint_dir`` map; the checkpoint has no
 ``generator.npy`` (a restore seeds the generator as ``state_from_jax``
-does).  A run program replays one serial run: ``--fused_iters`` and
-``--extra_loss memobank`` (ROADMAP item 10c) are refused.
+does).  A run program replays one serial run, ``--extra_loss memobank``
+included (its bank is ``state.bank.*``, in the checkpoint ``bank/*``):
+``--fused_iters`` is refused.
 """
 
 from __future__ import annotations

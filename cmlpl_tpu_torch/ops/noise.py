@@ -74,20 +74,30 @@ def normal(g: torch.Generator, shape, dtype: torch.dtype,
     return torch.randn(shape, generator=g, device=device, dtype=dtype)
 
 
+def choose(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The positions that the uniforms ``u`` (..., n) pick among the true
+    positions of each row of ``mask`` (..., N): (..., n) int64, each
+    uniform over the row's true positions; 0 where a row has none (the
+    callers gate on its count).  The k-th true position is found by a
+    search of the row's running count, so there is no host
+    synchronisation, and the choice is a pure function of ``u``, which a
+    step can draw before the mask exists (``train/driver.py``)."""
+    csum = mask.long().cumsum(-1)
+    total = csum[..., -1:]
+    k = torch.minimum((u * total).long(), total - 1)
+    # contiguous: under vmap k's seed axis may sit inside, and the search
+    # would copy it with a warning
+    return torch.searchsorted(csum, k.contiguous(), right=True).clamp(
+        max=mask.shape[-1] - 1)
+
+
 def masked_choice(g: torch.Generator, mask: torch.Tensor,
                   n: int) -> torch.Tensor:
     """``n`` indices drawn uniformly, with replacement, from the true
-    positions of each row of ``mask`` (..., N) -> (..., n) int64; 0 where
-    a row has none (the callers gate on its count).  The counterpart of
-    the JAX package's ``jax.random.categorical`` over 0 / -1e30 logits,
-    with no host synchronisation: the k-th true position is found by a
-    search of the row's running count."""
-    csum = mask.long().cumsum(-1)
-    total = csum[..., -1:]
-    u = uniform(g, mask.shape[:-1] + (n,), mask.device)
-    k = torch.minimum((u * total).long(), total - 1)
-    return torch.searchsorted(csum, k, right=True).clamp(
-        max=mask.shape[-1] - 1)
+    positions of each row of ``mask`` (..., N) -> (..., n) int64
+    (:func:`choose` of one uniform draw).  The counterpart of the JAX
+    package's ``jax.random.categorical`` over 0 / -1e30 logits."""
+    return choose(uniform(g, mask.shape[:-1] + (n,), mask.device), mask)
 
 
 def make_noiser(noise_impl: str, scale: float):

@@ -132,8 +132,7 @@ class CCTTrainer(EpochDriver):
                       for _ in range(2))
         return {"xp": xp_all, "x": x_all, "aug1": aug1, "aug2": aug2}
 
-    def _losses(self, apply, d, lab_y, carry, epoch, batch_index, g=None,
-                thr=None):
+    def _losses(self, apply, d, lab_y, carry, epoch, batch_index, thr=None):
         bt = lab_y.shape[0]
         scale = self.noisy.scale
         fea_all, _ = apply("model.encoder", d["xp"], d["x"])

@@ -20,9 +20,13 @@ total and the metric ``extra_loss``; ``stack_nets`` runs both forwards as
 one batched forward (``driver.stacked_forward``).
 
 Random streams: every draw of a step comes from the state's
-``torch.Generator``, on the training device, in a fixed order: the
-augmentations (labeled, then unlabeled), the noise views, net B's then
-net E's dropout mask, the memory bank's choices.
+``torch.Generator``, on the training device, in a fixed order, all of
+them in ``_draws``: the augmentations (labeled, then unlabeled), the
+noise views, net B's then net E's dropout mask, the memory bank's
+uniforms (pushed rows, anchors, negatives).  ``_losses`` draws nothing:
+the bank's choices are made there from those uniforms
+(``ops/noise.choose``), so a fused step draws them per seed before its
+vmap and an exported step from its counter stream.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ from cmlpl_tpu_torch.objectives.cmlpl import (adaptive_threshold,
                                               graph_contrastive,
                                               pseudo_label_graph,
                                               soft_consistency)
-from cmlpl_tpu_torch.objectives.contrastive import (memobank_contrastive,
+from cmlpl_tpu_torch.objectives.contrastive import (MemoBankDraws,
+                                                    memobank_contrastive,
+                                                    memobank_draws,
                                                     memobank_init, nt_xent)
 from cmlpl_tpu_torch.objectives.mmd import mmd_loss
 from cmlpl_tpu_torch.objectives.queue import (memory_smooth, queue_init,
@@ -52,6 +58,19 @@ METRICS = ("loss_contrast", "total_loss", "cls_loss", "con_loss",
            "total_loss_e", "acc", "mask_rate")
 EXTRA_LOSSES = ("", "memobank", "mmd", "ntxent")
 AUGMENTS = ("flip", "rot90", "radiation", "mixture")
+#: the memory bank's anchors per class and negatives per anchor
+#: (``cmlpl_tpu/train/cmlpl.py:379-383``)
+BANK_QUERIES, BANK_NEGATIVES = 32, 16
+
+
+def median(x: torch.Tensor) -> torch.Tensor:
+    """The median of the last axis, ``jnp.median``'s: the middle value,
+    or the mean of the two middle values of an even count, taken from a
+    sort as ``torch.quantile(x, 0.5)`` takes it (``lerp`` at 0.5), so the
+    same bits; unlike ``quantile`` it has a batching rule and traces."""
+    s = torch.sort(x, dim=-1).values
+    n = x.shape[-1]
+    return torch.lerp(s[..., (n - 1) // 2], s[..., n // 2], 0.5)
 
 
 def _when(cond, fn, other):
@@ -122,21 +141,6 @@ class CMLPLTrainer(TwoNetDriver):
             carry["bank"] = state.bank
         return carry
 
-    def _check_fusable(self) -> None:
-        if self.config.extra_loss == "memobank":
-            raise NotImplementedError(
-                "a fused multi-seed run (--fused_iters) with --extra_loss "
-                "memobank is not ported: the bank's choices depend on the "
-                "step's forward (ROADMAP.md section 1)")
-
-    def _check_run_exportable(self) -> None:
-        if self.config.extra_loss == "memobank":
-            raise NotImplementedError(
-                "an exported training run with --extra_loss memobank is not "
-                "ported: the bank's choices depend on the step's forward "
-                "(ROADMAP.md item 10c)")
-        super()._check_run_exportable()
-
     def _run_extras(self) -> tuple:
         """``extra0``: the adaptive threshold of each epoch
         (``cmlpl_tpu/train/cmlpl.py:585-592``)."""
@@ -146,14 +150,21 @@ class CMLPLTrainer(TwoNetDriver):
 
     def _draws(self, g, xp_l, x_l, xp_u, x_u, lab_y) -> dict:
         """The augmentations (labeled, then unlabeled), the noise views,
-        net B's then net E's dropout mask."""
-        if self.config.augment:
+        net B's then net E's dropout mask, and under "memobank" the bank's
+        uniforms (``"bank_<field>"`` of a ``MemoBankDraws``)."""
+        cfg = self.config
+        if cfg.augment:
             xp_l = self._augmented(g, xp_l, lab_y)
             xp_u = self._augmented(g, xp_u)
-        return self._views(g, xp_l, x_l, xp_u, x_u)
+        d = self._views(g, xp_l, x_l, xp_u, x_u)
+        if cfg.extra_loss == "memobank":
+            u = memobank_draws(g, cfg.num_classes, xp_l.device,
+                               num_queries=BANK_QUERIES,
+                               num_negatives=BANK_NEGATIVES)
+            d.update(("bank_" + k, v) for k, v in u._asdict().items())
+        return d
 
-    def _losses(self, apply, d, lab_y, carry, epoch, batch_index, g=None,
-                thr=None):
+    def _losses(self, apply, d, lab_y, carry, epoch, batch_index, thr=None):
         cfg = self.config
         bt = lab_y.shape[0]
         if thr is None:
@@ -214,7 +225,7 @@ class CMLPLTrainer(TwoNetDriver):
             + cfg.w_consistency * con_e
         if cfg.extra_loss:
             extra_b, extra_e, bank = self._extra(
-                carry.get("bank"), g, probs, xs, xw, feat_lab_b, feat_lab_e)
+                carry.get("bank"), d, probs, xs, xw, feat_lab_b, feat_lab_e)
             total_b = total_b + cfg.extra_weight * extra_b
             total_e = total_e + cfg.extra_weight * extra_e
             if bank is not None:
@@ -240,9 +251,10 @@ class CMLPLTrainer(TwoNetDriver):
                 getattr(carry["bank"], field).copy_(
                     getattr(writes["bank"], field))
 
-    def _extra(self, bank, g, probs, xs, xw, feat_lab_b, feat_lab_e):
+    def _extra(self, bank, d, probs, xs, xw, feat_lab_b, feat_lab_e):
         """(net B's, net E's) extra term (``cmlpl_tpu/train/cmlpl.py``
-        ``:355-388``), and the new bank under "memobank" (else None)."""
+        ``:355-388``), and the new bank under "memobank" (else None), whose
+        choices the bank's uniforms in the draws ``d`` make."""
         cfg = self.config
         if cfg.extra_loss == "ntxent":
             # the two nets' views of the same unlabeled samples
@@ -252,13 +264,13 @@ class CMLPLTrainer(TwoNetDriver):
             # labeled vs unlabeled feature distributions, per net
             return mmd_loss(feat_lab_b, xs), mmd_loss(feat_lab_e, xw), None
         # U2PL InfoNCE: net E (the smoothed probs) teaches net B; the
-        # reference's percentile entropy split is a median split, with
-        # jnp.median's mean of the two middle values (torch.quantile)
+        # reference's percentile entropy split is a median split
         ent = -torch.sum(probs * torch.log(probs + 1e-10), dim=1)
-        med = torch.quantile(ent, 0.5)
+        med = median(ent)
         extra_b, bank = memobank_contrastive(
             xs, xw.detach(), probs, probs.argmax(dim=1), ent <= med,
-            ent > med, bank, g, num_queries=32, num_negatives=16,
+            ent > med, bank,
+            MemoBankDraws(*(d["bank_" + k] for k in MemoBankDraws._fields)),
             temperature=0.5)
         return extra_b, torch.zeros((), device=xs.device), bank
 

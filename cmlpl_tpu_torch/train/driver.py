@@ -52,8 +52,11 @@ seed's randoms from that seed's generator outside the vmap (``_draws``),
 runs ``_losses`` for all seeds as one ``vmap`` (each convolution one
 grouped convolution, each product one batched product), takes ONE
 backward over the sum of the seeds' losses (each seed's gradient is its
-own) and writes the queues once for all seeds.  Each seed's pool is padded
-to one length with its first id, and the pools are gathered as one.
+own) and writes the queues once for all seeds.  CMLPL's memory bank is
+carried stacked too: unlike the queues' one pointer, its counts and
+pointers are per seed, so they are vmapped with its rows.  Each seed's
+pool is padded to one length with its first id, and the pools are
+gathered as one.
 """
 
 from __future__ import annotations
@@ -157,13 +160,13 @@ def stacked_forward(module, params, xps, xs, keeps=None):
 class SeedStack:
     """N seeds' trainer states as one (:meth:`EpochDriver.stack_states`):
     each parameter one (N, ...) leaf under one Adam per Adam of a state,
-    the carried state (CMLPL's queues) stacked the same way, and the
-    seeds' own generators.  ``states`` are the seeds' states, written
+    the carried state (CMLPL's queues and bank) stacked the same way, and
+    the seeds' own generators.  ``states`` are the seeds' states, written
     back by :meth:`EpochDriver.unstack`."""
     states: list
     params: dict              # full name -> (N, ...) leaf
     opts: list                # torch.optim.Adam over the leaves
-    carry: dict               # name -> stacked QueueState
+    carry: dict               # name -> stacked QueueState or MemoBankState
     modules: torch.nn.ModuleDict  # seed 0's modules: the architecture
     step: int = 0
 
@@ -196,7 +199,7 @@ class EpochDriver:
 
     def _carry(self, state) -> dict:
         """What a step reads and writes besides the params (CMLPL's
-        queues), by name."""
+        queues and bank), by name."""
         return {}
 
     def _draws(self, g, xp_l, x_l, xp_u, x_u, lab_y) -> dict:
@@ -206,10 +209,11 @@ class EpochDriver:
         raise NotImplementedError
 
     def _losses(self, apply: Apply, d: dict, lab_y, carry: dict,
-                epoch, batch_index, g=None, thr=None):
+                epoch, batch_index, thr=None):
         """The rest of a step on the draws ``d``: (the loss to minimise,
-        its metrics as 0-d tensors, the rows to write into ``carry``).
-        ``g`` is the generator in a serial step, None in a fused one.
+        its metrics as 0-d tensors, the rows to write into ``carry``).  It
+        draws nothing: a serial, a fused and a traced step all run it on
+        draws made before it.
         ``epoch`` and ``batch_index`` are ints, or 0-d tensors in a traced
         step (``train/functional.py``), which then passes CMLPL's adaptive
         threshold as ``thr`` (else computed from ``epoch``)."""
@@ -227,7 +231,7 @@ class EpochDriver:
         carry = self._carry(state)
         loss, metrics, writes = self._losses(
             Apply(torch.nn.ModuleDict(self._modules(state))), d, lab_y,
-            carry, epoch, batch_index, g)
+            carry, epoch, batch_index)
         self._update(state, loss, *self._opts(state))
         self._write(carry, writes)
         return metrics
@@ -245,16 +249,19 @@ class EpochDriver:
         draws = {k: torch.stack([d[k] for d in draws], dim=-2)
                  for k in draws[0]}
         seed_dims = {k: v.dim() - 2 for k, v in draws.items()}
-        queues = {k: (q.feats, q.probs) for k, q in ms.carry.items()}
+        # a queue's tensors (its pointer is shared); a bank as it is
+        carried = {k: (c.feats, c.probs) if isinstance(c, QueueState) else c
+                   for k, c in ms.carry.items()}
 
-        def one(params, d, y, qs):
-            carry = {k: QueueState(f, p, ms.carry[k].ptr)
-                     for k, (f, p) in qs.items()}
+        def one(params, d, y, cs):
+            carry = {k: QueueState(*c, ms.carry[k].ptr)
+                     if isinstance(ms.carry[k], QueueState) else c
+                     for k, c in cs.items()}
             return self._losses(Apply(ms.modules, params), d, y, carry,
                                 epoch, batch_index)
 
         loss, metrics, writes = vmap(one, in_dims=(0, seed_dims, 0, 0))(
-            ms.params, draws, lab_y, queues)
+            ms.params, draws, lab_y, carried)
         self._update(ms, loss.sum(), *ms.opts)
         self._write(ms.carry, writes)
         return metrics
@@ -398,9 +405,15 @@ class EpochDriver:
                            for m in ("exp_avg", "exp_avg_sq")}}
             opts.append(opt)
         carries = [self._carry(st) for st in states]
-        carry = {k: QueueState(torch.stack([c[k].feats for c in carries]),
-                               torch.stack([c[k].probs for c in carries]),
-                               q.ptr) for k, q in carries[0].items()}
+        carry = {}
+        for k, c in carries[0].items():
+            if isinstance(c, QueueState):
+                carry[k] = QueueState(
+                    torch.stack([cs[k].feats for cs in carries]),
+                    torch.stack([cs[k].probs for cs in carries]), c.ptr)
+            else:
+                carry[k] = type(c)(*(torch.stack(f) for f in zip(
+                    *(cs[k] for cs in carries))))
         return SeedStack(list(states), params, opts, carry,
                          torch.nn.ModuleDict(self._modules(states[0])),
                          states[0].step)
@@ -423,15 +436,16 @@ class EpochDriver:
                                 "step": mo["step"].clone(),
                                 "exp_avg": mo["exp_avg"][i].clone(),
                                 "exp_avg_sq": mo["exp_avg_sq"][i].clone()}
-            for k, q in self._carry(st).items():
-                q.feats.copy_(ms.carry[k].feats[i])
-                q.probs.copy_(ms.carry[k].probs[i])
-                q.ptr = ms.carry[k].ptr
+            for k, c in self._carry(st).items():
+                if isinstance(c, QueueState):
+                    c.feats.copy_(ms.carry[k].feats[i])
+                    c.probs.copy_(ms.carry[k].probs[i])
+                    c.ptr = ms.carry[k].ptr
+                else:
+                    for t, stacked in zip(c, ms.carry[k]):
+                        t.copy_(stacked[i])
             st.step = ms.step
         return ms.states
-
-    def _check_fusable(self) -> None:
-        """Raises NotImplementedError for what a fused run cannot replay."""
 
     def _check_run_exportable(self) -> None:
         """Raises NotImplementedError for what an exported training run
@@ -458,7 +472,6 @@ class EpochDriver:
         whole schedule first), and each seed's draws come from its own
         generator in the serial step's order.  Returns (the seeds' states,
         in order; metrics stacked (S, E, N))."""
-        self._check_fusable()
         if states is None:
             states = [self.init_state((seed, i)) for i in range(num_iters)]
         if len(states) != num_iters:

@@ -15,7 +15,8 @@ step takes and returns tensors:
 - Adam is :func:`adam_update`, optax's state (``count``, ``mu``, ``nu``)
   stepped by ``torch.optim.Adam``'s single-tensor arithmetic, so on the
   CPU a step equals the eager one bit for bit;
-- the queues are written out of place (``objectives/queue.queue_write``);
+- the queues are written out of place (``objectives/queue.queue_write``),
+  and CMLPL's memory bank is the new bank ``_losses`` returns;
 - the schedule (epoch, batch index, CMLPL's adaptive threshold) comes in
   as 0-d tensors, and the trainers turn its Python branches into selects.
 
@@ -35,6 +36,7 @@ import torch
 from torch.func import grad_and_value
 
 from cmlpl_tpu_torch.core.rng import CounterStream
+from cmlpl_tpu_torch.objectives.contrastive import MemoBankState
 from cmlpl_tpu_torch.objectives.queue import QueueState, queue_write
 from cmlpl_tpu_torch.train.driver import Apply
 from cmlpl_tpu_torch.weights import _FROM_FLAX
@@ -44,8 +46,9 @@ from cmlpl_tpu_torch.weights import _FROM_FLAX
 class Leaf:
     """One tensor of the state: its bundle name, what it is, and where the
     step keeps it.  ``kind``: "param", "mu", "nu", "count", "queue",
-    "rng" or "step"; ``key``: a param's full torch name
-    (``"net_b.conv0.weight"``) or a queue's ``"<queue>.<field>"``;
+    "bank", "rng" or "step"; ``key``: a param's full torch name
+    (``"net_b.conv0.weight"``) or a queue's or the bank's
+    ``"<name>.<field>"``;
     ``opt``: the index of the Adam of "mu", "nu" and "count";
     ``perm``: a kernel's flax -> torch permutation."""
     name: str
@@ -88,17 +91,19 @@ class StateLayout:
     flax-layout values (``values``, numpy), and the moves between that
     layout and the step's.
 
-    ``rng``: the run's key, uint32 (2,), placed before ``state.step`` as
-    in the JAX state."""
+    ``rng``: the run's key, uint32 (2,), placed just before ``state.step``
+    as in the JAX state (CMLPL's bank follows the step there)."""
 
     def __init__(self, trainer, state, rng: np.ndarray):
-        tree = dict(trainer.state_to_jax(state))
-        step = tree.pop("step")
-        tree["rng"] = np.asarray(rng, np.uint32)
-        tree["step"] = step
+        tree = {}
+        for k, v in trainer.state_to_jax(state).items():
+            if k == "step":
+                tree["rng"] = np.asarray(rng, np.uint32)
+            tree[k] = v
         params = trainer.JAX_PARAMS
         opts = trainer.JAX_OPTS
-        carry = set(trainer._carry(state))
+        carry = {k: "queue" if isinstance(c, QueueState) else "bank"
+                 for k, c in trainer._carry(state).items()}
         self.leaves: list[Leaf] = []
         self.values: list[np.ndarray] = []
         for path, value in _ordered(tree):
@@ -129,7 +134,7 @@ class StateLayout:
                 if rest[0] in ("mu", "nu"):
                     return param_leaf(rest[0], module, rest[1:], k)
         if path[0] in carry and len(path) == 2:
-            return Leaf(name, "queue", ".".join(path))
+            return Leaf(name, carry[path[0]], ".".join(path))
         if path in (("rng",), ("step",)):
             return Leaf(name, path[0])
         raise ValueError(f"{name}: no place in a run program's state")
@@ -155,12 +160,12 @@ class StateLayout:
 
     def unpack(self, tensors) -> dict:
         """Step-layout tensors -> ``{"params": {key: t}, "opts": [{"count",
-        "mu": {key: t}, "nu": {key: t}}], "carry": {queue: QueueState},
-        "rng", "step"}``."""
+        "mu": {key: t}, "nu": {key: t}}], "carry": {queue: QueueState,
+        "bank": MemoBankState}, "rng", "step"}``."""
         st = {"params": {}, "opts": [{"mu": {}, "nu": {}}
                                      for _ in self.opt_keys],
               "carry": {}}
-        queues: dict = {}
+        carried: dict = {}
         for lf, t in zip(self.leaves, tensors):
             if lf.kind == "param":
                 st["params"][lf.key] = t
@@ -168,13 +173,14 @@ class StateLayout:
                 st["opts"][lf.opt][lf.kind][lf.key] = t
             elif lf.kind == "count":
                 st["opts"][lf.opt]["count"] = t
-            elif lf.kind == "queue":
-                q, field = lf.key.split(".")
-                queues.setdefault(q, {})[field] = t
+            elif lf.kind in ("queue", "bank"):
+                name, field = lf.key.split(".")
+                carried.setdefault(name, (lf.kind, {}))[1][field] = t
             else:
                 st[lf.kind] = t
-        st["carry"] = {q: QueueState(f["feats"], f["probs"], f["ptr"])
-                       for q, f in queues.items()}
+        st["carry"] = {name: (QueueState if kind == "queue"
+                              else MemoBankState)(**fields)
+                       for name, (kind, fields) in carried.items()}
         return st
 
     def pack(self, st: dict) -> list[torch.Tensor]:
@@ -187,9 +193,9 @@ class StateLayout:
                 out.append(st["opts"][lf.opt][lf.kind][lf.key])
             elif lf.kind == "count":
                 out.append(st["opts"][lf.opt]["count"])
-            elif lf.kind == "queue":
-                q, field = lf.key.split(".")
-                out.append(getattr(st["carry"][q], field))
+            elif lf.kind in ("queue", "bank"):
+                name, field = lf.key.split(".")
+                out.append(getattr(st["carry"][name], field))
             else:
                 out.append(st[lf.kind])
         return out
@@ -262,7 +268,7 @@ class RunStep:
         def loss_fn(params):
             loss, metrics, writes = tr._losses(
                 Apply(self.modules, params), d, ly, carry, epoch,
-                batch_index, g, thr)
+                batch_index, thr)
             return loss, (metrics, writes)
 
         grads, (_, (metrics, writes)) = grad_and_value(
@@ -273,7 +279,9 @@ class RunStep:
                                     self.hyper):
             params, new = adam_update(params, grads, opt, keys, hyper)
             opts.append(new)
-        new_carry = {q: queue_write(carry[q], *writes[q]) for q in carry}
+        new_carry = {k: queue_write(c, *writes[k])
+                     if isinstance(c, QueueState) else writes[k]
+                     for k, c in carry.items()}
         new = dict(st, params=params, opts=opts, carry=new_carry,
                    step=st["step"] + 1)
         return self.layout.pack(new), metrics

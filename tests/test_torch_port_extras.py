@@ -32,6 +32,7 @@ from cmlpl_tpu.objectives import supervised as jax_supervised
 from cmlpl_tpu.train import CMLPLConfig as JaxConfig
 from cmlpl_tpu.train import CMLPLTrainer as JaxTrainer
 from cmlpl_tpu_torch.cli import train as cli_train
+from cmlpl_tpu_torch.core.rng import uniform
 from cmlpl_tpu_torch.data import augment
 from cmlpl_tpu_torch.data.io import synthetic_scene
 from cmlpl_tpu_torch.data.prep import prepare_scene
@@ -183,9 +184,9 @@ def _pin_first_choice(mp):
                lambda key, mask, n: jnp.broadcast_to(jnp.argmax(mask), (n,)))
     mp.setattr(jax.random, "randint",
                lambda key, shape, lo, hi, *a, **k: jnp.zeros(shape, jnp.int32))
-    mp.setattr(contrastive, "masked_choice",
-               lambda g, mask, n: mask.long().argmax(-1, keepdim=True).expand(
-                   *mask.shape[:-1], n))
+    mp.setattr(contrastive, "choose",
+               lambda u, mask: mask.long().argmax(-1, keepdim=True).expand(
+                   *mask.shape[:-1], u.shape[-1]))
 
 
 @pytest.fixture
@@ -232,10 +233,14 @@ def test_memobank_contrastive_matches_jax(rng, first_choice):
     trep = torch.from_numpy(rep).requires_grad_()
     bank = contrastive.MemoBankState(*(torch.from_numpy(a.copy())
                                        for a in (feats, count, ptr)))
+    u = contrastive.memobank_draws(torch.Generator(), 5, "cpu",
+                                   num_queries=4, num_negatives=3,
+                                   max_push=3)
     loss, new = contrastive.memobank_contrastive(
         trep, torch.from_numpy(teacher), torch.from_numpy(probs),
         torch.from_numpy(labels), torch.from_numpy(low),
-        torch.from_numpy(high), bank, torch.Generator(), **kw)
+        torch.from_numpy(high), bank, u, temperature=0.5, low_rank=1,
+        high_rank=4)
     loss.backward()
     assert float(jloss) > 0
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=RTOL,
@@ -264,7 +269,8 @@ def test_memobank_update_pushes_candidates_fifo():
     old = torch.randn(c, size, d, generator=torch.Generator().manual_seed(0))
     bank.feats.copy_(old)
     g = torch.Generator().manual_seed(1)
-    new = contrastive.memobank_update(bank, feats, mask, max_push, g)
+    new = contrastive.memobank_update(bank, feats, mask,
+                                      uniform(g, (c, max_push), "cpu"))
     assert new.count.tolist() == [3, 4, 0, 1]
     assert new.ptr.tolist() == [3, 2, 4, 2]
     for k, rows in ((0, [0, 1, 2]), (1, [3, 4, 0, 1]), (3, [1])):
@@ -274,7 +280,7 @@ def test_memobank_update_pushes_candidates_fifo():
         assert torch.equal(new.feats[k, untouched], old[k, untouched])
     assert torch.equal(new.feats[2], old[2])
     draws = torch.cat([contrastive.memobank_update(
-        bank, feats, mask, max_push, g).feats[0, :3, 0]
+        bank, feats, mask, uniform(g, (c, max_push), "cpu")).feats[0, :3, 0]
         for _ in range(1334)]).long()
     freq = torch.bincount(draws, minlength=n)[[1, 4, 7]].double() / len(draws)
     assert ((freq - 1 / 3).abs() < 5 * np.sqrt(2 / 9 / len(draws))).all()

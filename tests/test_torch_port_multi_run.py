@@ -134,14 +134,6 @@ def test_fused_takes_the_extras_and_views(tiny):
                                    rtol=1e-3, atol=1e-4)
 
 
-def test_memobank_is_refused(tiny):
-    *_, scene, splits = tiny
-    trainer = CMLPLTrainer(CMLPLConfig(**TINY, extra_loss="memobank"),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="memobank"):
-        trainer.train_multi_run(0, scene, _sampler(scene, splits), 2)
-
-
 def test_seed_pools_pad_each_pool_with_its_first_id():
     rng = np.random.default_rng(1)
     li = rng.integers(0, 40, (3, 2, 2, 4)).astype(np.int32)

@@ -238,10 +238,9 @@ def test_import_run_restores_and_maps(bundles, port_run):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--extra_loss", "memobank"], "item 10c"),
     (["--fused_iters", "--num_iters", "2"], "--fused_iters"),
     (["--gather_impl", "xla"], "gathers its pool once"),
-], ids=["memobank", "fused_iters", "per_step_gather"])
+], ids=["fused_iters", "per_step_gather"])
 def test_cli_refuses(tmp_path, flags, match):
     with pytest.raises(SystemExit, match=match):
         export_model.main(FLAGS + flags + ["--train_bundle",

@@ -5,7 +5,8 @@
 A training program's AOTInductor compile takes minutes on this CPU, so
 the mode is held here on a small program with the bundle's plumbing: named
 inputs and outputs of every dtype a training bundle carries (f32, i32,
-u32; 0-d and n-d), a signature written by ``save_native_bundle``.  The
+u32; 0-d and n-d, the memory bank's (C,) i32 counts among them), a
+signature written by ``save_native_bundle``.  The
 training bundle itself runs through the runner on the card
 (``chip_smoke.py``'s ``train_bundle`` phase).
 """
@@ -24,20 +25,24 @@ from cmlpl_tpu_torch.utils.export import save_native_bundle
 
 from torch_port_threads import one_torch_thread  # noqa: F401
 
-IN_NAMES = ("state.w", "state.count", "state.rng", "scale")
-OUT_NAMES = ("state.w", "state.count", "state.rng", "metrics.total")
+IN_NAMES = ("state.w", "state.count", "state.rng", "state.bank.count",
+            "scale")
+OUT_NAMES = ("state.w", "state.count", "state.rng", "state.bank.count",
+             "metrics.total")
 
 
 class Toy(torch.nn.Module):
-    def forward(self, w, count, rng, scale):
+    def forward(self, w, count, rng, bank_count, scale):
         w = w * scale + 1
-        return w, count + 1, rng.clone(), w.sum()
+        return w, count + 1, rng.clone(), bank_count * 2 + 1, w.sum()
 
 
 def toy_inputs():
     return {"state.w": np.arange(12, dtype=np.float32).reshape(3, 4),
             "state.count": np.array(7, np.int32),
             "state.rng": np.array([1, 0xFFFFFFFF], np.uint32),
+            "state.bank.count": np.array([0, 3, 64, -1, 2 ** 29, 9, 1, 5, 6],
+                                         np.int32),
             "scale": np.array(0.5, np.float32)}
 
 
@@ -65,9 +70,12 @@ def test_signature_names_every_argument(bundle):
     with open(bundle["dir"] / "signature.txt") as f:
         lines = f.read().splitlines()
     assert lines == ["input state.w f32 3,4", "input state.count i32 -",
-                     "input state.rng u32 2", "input scale f32 -",
+                     "input state.rng u32 2", "input state.bank.count i32 9",
+                     "input scale f32 -",
                      "output state.w f32 3,4", "output state.count i32 -",
-                     "output state.rng u32 2", "output metrics.total f32 -"]
+                     "output state.rng u32 2",
+                     "output state.bank.count i32 9",
+                     "output metrics.total f32 -"]
 
 
 def test_inputs_outdir_writes_every_output(bundle):
@@ -77,7 +85,7 @@ def test_inputs_outdir_writes_every_output(bundle):
     assert set(line) == {"load_ms", "run_ms_min", "run_ms_mean", "repeat",
                          "num_inputs", "num_outputs", "device"}
     assert (line["repeat"], line["num_inputs"], line["num_outputs"],
-            line["device"]) == (2, 4, 4, "cpu")
+            line["device"]) == (2, 5, 5, "cpu")
     assert 0 < line["run_ms_min"] <= line["run_ms_mean"]
     assert sorted(os.listdir(out)) == sorted(n + ".npy" for n in OUT_NAMES)
     for name, want in bundle["want"].items():
@@ -125,4 +133,4 @@ def test_launcher_main_takes_the_mode(bundle, capsys):
                                  str(bundle["dir"] / "inputs"), "--outdir",
                                  str(out), "--device", "cpu"])
     assert json.loads(capsys.readouterr().out) == result
-    assert result["num_outputs"] == 4
+    assert result["num_outputs"] == 5
