@@ -63,7 +63,20 @@ least available memory is watched throughout; the bundle run by the runner
 (``--inputs --outdir``) and in Python, the two held to each other, its
 outputs imported (``--import_run``) and mapped by ``predict
 --checkpoint_dir``, the map's OA held to the eager run's; the memory-bank
-bundle run by the runner, imported and mapped.  Every
+bundle run by the runner, imported and mapped.  Then the per-step bundle
+(slice 11): both kernels' ``cmlpl`` operators bitwise the plain gather at
+the kernels' sites and edges, by their Python registration in the kernel
+phase and by their C++ one (``csrc/gather_ops.cpp``, the runner's, built
+by ``g++`` in a thread) in a process of its own;
+``cli.export_model --train_bundle --gather_impl pallas`` of the default
+run, 2 epochs, exported and compiled in a third process from the start,
+its package run there under the profiler (kernel 1 launched on the card 2
+a step); each per-step mode's one-step program against the eager step of
+its mode (the second process); the bundle run by the runner with the
+operators' library, its ``ms_per_step`` beside the pool bundle's and the
+eager per-step epoch's, imported and mapped.  The export phase holds the
+runner's bf16 map, compiled with precision-cast emulation, to the
+in-process bf16 map.  Every
 phase prints one JSON line, with ``at_s``, its process's seconds since it
 started; the card's name and power limit, then a ``kernels`` line
 (launches on the main path, error, times, bounds, launch plans and B = 1
@@ -412,10 +425,11 @@ def fenced(cube: torch.Tensor, at_end: bool):
         call("cuMemAddressFree", va.value, size + 2 * g)
 
 
-def edge_cases(cube, cols: int, w: int):
+def edge_cases(cube, cols: int, w: int, group: int | None = None):
     """(ids cases, bases) at the kernel's edges for windows of ``w``.  The
     cases, each (label, ids, cols): the cube's first and last windows, B =
-    1, and B = G + 1 (a ragged last group, G the plan's at a map tile).
+    1, and B = G + 1 (a ragged last group, G ``group`` or the plan's at a
+    map tile).
     The first window begins at the cube's first byte and is taken at out
     rows that are and are not 16-byte aligned; the last ends at the cube's
     last byte: start (rows - w, cols' - 1) under the divisor cols' =
@@ -423,15 +437,13 @@ def edge_cases(cube, cols: int, w: int):
     cube): ``cube`` itself, a copy whose base lies one element past an
     aligned allocation, and copies that start or end at an unmapped
     neighbour (``fenced``), where a read outside the cube fails."""
-    from cmlpl_tpu_torch.ops.patch_gather import card_sms, gather_plan
-
     rows_c, cols_c, ch = cube.shape
     last_cols = cols_c - w + 1
     dev = cube.device
     last = (rows_c - w) * last_cols + last_cols - 1
     first_last = torch.tensor([0, last, 0, 0], dtype=torch.int32, device=dev)
-    group = gather_plan(TILE, w, ch, cube.element_size(),
-                        card_sms(dev)).group
+    if group is None:
+        group = map_tile_group(w, ch, cube.element_size())
     g = torch.Generator(device=dev).manual_seed(SEED + 1000 * w + ch)
     one = torch.randint(0, rows_c * cols, (1,), generator=g, device=dev,
                         dtype=torch.int32)
@@ -452,6 +464,14 @@ def edge_cases(cube, cols: int, w: int):
              ("fenced below", lambda: fenced(cube, at_end=False)),
              ("fenced above", lambda: fenced(cube, at_end=True))]
     return cases, bases
+
+
+def map_tile_group(w: int, channels: int, elt_bytes: int) -> int:
+    """G of the launch plan of a map tile (B = ``TILE``) on this card."""
+    from cmlpl_tpu_torch.ops.patch_gather import card_sms, gather_plan
+
+    return gather_plan(TILE, w, channels, elt_bytes,
+                       card_sms(torch.device("cuda"))).group
 
 
 def check_edges(name: str, wrapper, cube, cols: int, w: int,
@@ -496,19 +516,14 @@ def check_edges(name: str, wrapper, cube, cols: int, w: int,
     return max_err
 
 
-def phase_kernels(scene, device):
-    """Both kernels vs the plain gather, bitwise, at the serving shape and
-    at odd w 9, w 8 and a ragged batch of 21 with ids off the scene, and at
-    the serving shape's edges (``edge_cases``); then their times over one
-    map's tiles beside the plain version's, one PyTorch library call's and
-    the bound."""
-    from cmlpl_tpu_torch.data.patches import gather_patches
-    from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
-                                                  gather_patches_f32)
-
+def kernel_cases(scene, device):
+    """The sites the kernels are held at, each (label, f32 cube, ids, cols,
+    w): the serving shape (a map tile and the last tile), odd w 9, w 8, a
+    ragged batch of 21 with ids off the scene, and the training step's B =
+    128; and the map's tiles."""
     rows, cols = scene.rows, scene.cols
     g = torch.Generator(device=device).manual_seed(SEED)
-    cases = []   # (label, cube f32, idx, cols, w)
+    cases = []
     tiles = map_tiles(rows * cols, device)
     cases.append(("serving B=512 w=20", scene.padded_pca, tiles[123], cols,
                   W))
@@ -529,7 +544,99 @@ def phase_kernels(scene, device):
                                             dtype=torch.int32)])
     cases.append(("ragged B=21 w=9 with edge ids", cases[2][1], ragged, cols,
                   9))
+    cases.append(("training step B=128 w=20", scene.padded_pca,
+                  torch.randint(0, rows * cols, (128,), generator=g,
+                                device=device, dtype=torch.int32), cols, W))
+    return cases, tiles
 
+
+#: the operators of kernels 1 and 2 (``cmlpl::gather_patches_*``), by the
+#: kernel they launch
+OPERATORS = {"patch_gather_f32": ("gather_patches_f32", torch.float32),
+             "patch_gather_bf16": ("gather_patches_bf16", torch.bfloat16)}
+
+
+def check_operators(scene, device, registration: str, groups=None) -> dict:
+    """Each ``cmlpl::gather_patches_*`` operator on CUDA tensors bitwise
+    the plain gather at every site of :func:`kernel_cases` and at the
+    serving shape's edges, the fenced cubes' too (``edge_cases``; ``groups``
+    the plan's G of each kernel, where the caller cannot plan).  Returns
+    {kernel: the largest absolute difference (0)}."""
+    from cmlpl_tpu_torch.data.patches import gather_patches
+
+    cases, _ = kernel_cases(scene, device)
+    report = {}
+    for name, (op_name, dtype) in OPERATORS.items():
+        op = getattr(torch.ops.cmlpl, op_name)
+        max_err, held = 0.0, 0
+
+        def check(label, cube, ids, c, w):
+            got = op(cube, ids, c, w)
+            want = gather_patches(cube, ids, cols=c, w=w)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and got.dtype == dtype,
+                    f"{registration} {op_name} {label}: shape/dtype")
+            require(torch.equal(bits(got), bits(want)),
+                    f"{registration} {op_name} {label}: not bitwise equal "
+                    "to the plain gather")
+            return float((got.float() - want.float()).abs().max())
+
+        for label, cube, idx, c, w in cases:
+            max_err = max(max_err, check(label, cube.to(dtype).contiguous(),
+                                         idx, c, w))
+            held += 1
+        cube = scene.padded_pca.to(dtype).contiguous()
+        edges, bases = edge_cases(cube, scene.cols, W,
+                                  None if groups is None else groups[name])
+        for base, make in bases:
+            with make() as cb:
+                for case, ids, c in edges:
+                    max_err = max(max_err, check(f"{case}, {base}", cb, ids,
+                                                 c, W))
+                    held += 1
+        report[name] = max_err
+        emit({"phase": "operator_vs_plain", "operator": f"cmlpl::{op_name}",
+              "registration": registration, "kernel": name,
+              "cases": held, "bitwise_equal": True})
+    return report
+
+
+def run_cxx_operator_checks(library: str, group_f32: str,
+                            group_bf16: str) -> dict:
+    """:func:`check_operators` on the C++ registration of the operators
+    (``csrc/gather_ops.cpp``, the native runner's), in a process that
+    loads that library and nothing of the port's ``ops`` (whose Python
+    registration of the same namespace would refuse it)."""
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+
+    torch.ops.load_library(library)
+    require("cmlpl_tpu_torch.ops.patch_gather" not in sys.modules,
+            "the C++ operators' check imported the Python registration")
+    device = torch.device("cuda")
+    cube, gt = synthetic_scene(DATA_ID)
+    scene = prepare_scene(DATA_ID, cube=cube, gt=np.zeros_like(gt),
+                          patch_size=W, n_pc=N_PC, device=device)
+    report = check_operators(
+        scene, device, "C++ (csrc/gather_ops.cpp)",
+        {"patch_gather_f32": int(group_f32),
+         "patch_gather_bf16": int(group_bf16)})
+    return {"max_abs_err": report}
+
+
+def phase_kernels(scene, device):
+    """Both kernels vs the plain gather, bitwise, at the sites of
+    :func:`kernel_cases` and at the serving shape's edges
+    (``edge_cases``); then their times over one map's tiles beside the
+    plain version's, one PyTorch library call's and the bound; then both
+    kernels' operators (their Python registration) at the same sites and
+    edges."""
+    from cmlpl_tpu_torch.data.patches import gather_patches
+    from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
+                                                  gather_patches_f32)
+
+    cols = scene.cols
+    cases, tiles = kernel_cases(scene, device)
     kernels = {"patch_gather_f32": (gather_patches_f32, torch.float32),
                "patch_gather_bf16": (gather_patches_bf16, torch.bfloat16)}
     report = {}
@@ -557,6 +664,9 @@ def phase_kernels(scene, device):
                         "kernel_ms": times["ms"], **times,
                         "tiles_timed": len(tiles)}
         emit({"phase": "kernel_timing", "kernel": name, **report[name]})
+    for name, err in check_operators(scene, device,
+                                     "Python (ops/patch_gather.py)").items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
     return report
 
 
@@ -2456,7 +2566,8 @@ def run_export(tmp, host_build_s, gate) -> dict:
         dense_logits = dense_scene_logits(models["float32"].state_dict(),
                                           scene).cpu()
     logits_at = {"xla": tiled_logits(apply, scene),
-                 "dense": lambda ids: dense_logits[torch.from_numpy(ids)]}
+                 "dense": lambda ids: dense_logits[torch.from_numpy(ids)],
+                 "bf16": tiled_logits(logits_fn(models["bfloat16"]), scene)}
 
     report = {"torch_version": torch.__version__,
               "runner_build_s": float(host_build_s), "tiles": tiles,
@@ -2480,9 +2591,10 @@ def run_export(tmp, host_build_s, gate) -> dict:
         native = run_host(bundle, cube_npy, spectra_npy, labels_npy,
                           repeat=SERVE_REPEAT, timeout=600)
         labels = np.load(labels_npy)
-        if name in logits_at:
-            tie_safe_equal(labels, want[name], logits_at[name],
-                           f"aoti_host {name} vs the in-process map")
+        # bf16 too: its package is compiled with Inductor's
+        # precision-cast emulation, so it rounds where eager rounds
+        tie_safe_equal(labels, want[name], logits_at[name],
+                       f"aoti_host {name} vs the in-process map")
         run = {"meta": {k: meta[k] for k in ("gather", "tile", "platforms",
                                              "compute_dtype",
                                              "torch_version")},
@@ -2500,9 +2612,9 @@ def run_export(tmp, host_build_s, gate) -> dict:
                              if ln.startswith("ok ")]}
         report["runs"][name] = run
     emit({"phase": "export", "card": card_name_and_power(), **report,
-          "note": "random weights on the synthetic PaviaU-size scene; "
-                  "bf16 runner labels reported, not held (Inductor's bf16 "
-                  "fusions round elsewhere)"})
+          "note": "random weights on the synthetic PaviaU-size scene; the "
+                  "bf16 bundle compiled with Inductor's precision-cast "
+                  "emulation"})
     return {"launches": launches}
 
 
@@ -2691,42 +2803,28 @@ def threefry_card_vs_cpu() -> dict:
     return report
 
 
-def bundle_memobank_step_vs_eager(tscene) -> dict:
-    """(e) The memory-bank run program's first step against one eager
-    step on the same draws, on the card, noise and dropout on: a one-step
-    program (``.module()``) of the default config with
-    ``extra_loss="memobank"`` on the default schedule's first batch, net E
-    sharpened (its classifier times 30, so that the bank has anchors and
-    its term a gradient), against the eager trainer's step whose draws
-    come from the program's first ``CounterStream``.  The step-1
-    gradients (the bias-corrected first moments) within
-    ``CARD_CPU_GRAD_TOL`` of each tensor's largest, as
-    :func:`bundle_vs_eager_epoch` holds them; the banks' counts and
-    pointers equal."""
+def one_step_program_vs_eager(tscene, trainer) -> dict:
+    """A one-step run program of ``trainer`` (``.module()``, on the card)
+    on the default schedule's first batch, against the eager trainer's
+    step from the same initial state whose draws come from the program's
+    first ``CounterStream`` and whose patches its gather takes (the
+    trainer's per-step gather, or the plain gather of the pool's rows).
+    Returns the program's outputs and the eager state's, by name (flax
+    layout), the eager step's metrics, the meta, the export's seconds, the
+    step-1 gradients' gap (the bias-corrected first moments, each tensor's
+    largest difference over its largest entry), and the kernel wrappers'
+    launches in the program's run (the operators launch through them)."""
     from cmlpl_tpu_torch.core.rng import CounterStream
     from cmlpl_tpu_torch.data.patches import gather_patches
     from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
     from cmlpl_tpu_torch.data.splits import generate_splits
     from cmlpl_tpu_torch.device import compute_precision
-    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
     from cmlpl_tpu_torch.train.driver import Apply
     from cmlpl_tpu_torch.train.functional import StateLayout
-    from cmlpl_tpu_torch.train.state import CMLPLConfig
     from cmlpl_tpu_torch.utils.export import build_run_exported
 
     device = torch.device("cuda")
-    trainer = CMLPLTrainer(CMLPLConfig(num_epochs=1, gather_impl="pool",
-                                       extra_loss="memobank"), device=device)
-    init_state = trainer.init_state
-
-    def sharpened(seed):
-        state = init_state(seed)
-        with torch.no_grad():
-            for p in state.net_e.model.classifier.parameters():
-                p.mul_(30)
-        return state
-
-    trainer.init_state = sharpened
     labels = tscene.labels
     sampler = FirstBatch(SemiSupervisedSampler(
         generate_splits(labels, num_label=5), labels, 128, 128, 10000,
@@ -2737,16 +2835,26 @@ def bundle_memobank_step_vs_eager(tscene) -> dict:
     export_s = time.perf_counter() - t0
     args = [torch.from_numpy(np.array(v)).to(device)
             for v in inputs.values()]
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
     with compute_precision(meta["compute_dtype"]):
         outs = exported.module()(*args)
+    launches = {w.__name__: w.launches for w in WRAPPERS}
     got = {n: o.cpu() for n, o in zip(meta["output_names"], outs)}
 
     state = trainer.init_state((SEED, 0))
     li, ly, ui = (torch.from_numpy(np.asarray(a)).to(device)
                   for a in sampler.batch)
-    xp_l, xp_u = (gather_patches(tscene.padded_pca, i.int(),
-                                 cols=tscene.cols, w=W) for i in (li, ui))
-    x_l, x_u = (tscene.spectra.index_select(0, i.long()) for i in (li, ui))
+    if trainer.config.gather_impl == "pool":
+        xp_l, xp_u = (trainer.cast(gather_patches(
+            tscene.padded_pca, i.int(), cols=tscene.cols, w=W))
+            for i in (li, ui))
+    else:
+        cube = trainer._prep_cube(tscene.padded_pca)
+        xp_l, xp_u = (trainer.cast(trainer._gather(
+            cube, i.int().contiguous(), tscene.cols, W)) for i in (li, ui))
+    x_l, x_u = (trainer.cast(tscene.spectra).index_select(0, i.long())
+                for i in (li, ui))
     key = args[meta["input_names"].index("state.rng")]
     thr = args[meta["input_names"].index("extra0")][0]
     with compute_precision("float32"):
@@ -2764,13 +2872,46 @@ def bundle_memobank_step_vs_eager(tscene) -> dict:
     params = [lf for lf in layout.leaves if lf.kind == "param"]
     grad_err = grad_gap([moment_grad(lf, got) for lf in params],
                         [moment_grad(lf, want) for lf in params])
+    return {"got": got, "want": want, "metrics": metrics, "meta": meta,
+            "export_s": export_s, "grad_err": grad_err,
+            "program_launches": launches}
+
+
+def bundle_memobank_step_vs_eager(tscene) -> dict:
+    """(e) The memory-bank run program's first step against one eager
+    step on the same draws, on the card, noise and dropout on
+    (:func:`one_step_program_vs_eager`): the default config with
+    ``extra_loss="memobank"``, net E sharpened (its classifier times 30,
+    so that the bank has anchors and its term a gradient).  The step-1
+    gradients within ``CARD_CPU_GRAD_TOL`` of each tensor's largest, as
+    :func:`bundle_vs_eager_epoch` holds them; the banks' counts and
+    pointers equal."""
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    trainer = CMLPLTrainer(CMLPLConfig(num_epochs=1, gather_impl="pool",
+                                       extra_loss="memobank"),
+                           device=torch.device("cuda"))
+    init_state = trainer.init_state
+
+    def sharpened(seed):
+        state = init_state(seed)
+        with torch.no_grad():
+            for p in state.net_e.model.classifier.parameters():
+                p.mul_(30)
+        return state
+
+    trainer.init_state = sharpened
+    step = one_step_program_vs_eager(tscene, trainer)
+    got, want, metrics = step["got"], step["want"], step["metrics"]
+    grad_err = step["grad_err"]
     bank_equal = all(torch.equal(got[f"state.bank.{f}"],
                                  want[f"state.bank.{f}"])
                      for f in ("count", "ptr"))
     extra = (float(got["metrics.extra_loss"].reshape(-1)[0]),
              float(metrics["extra_loss"]))
     report = {"phase": "train_bundle_memobank_vs_eager", "steps": 1,
-              "export_s": export_s,
+              "export_s": step["export_s"],
               "step1_grad_max_diff_of_tensor_max": grad_err,
               "bank_count_ptr_equal": bank_equal,
               "bank_count": got["state.bank.count"].tolist(),
@@ -2789,6 +2930,133 @@ def bundle_memobank_step_vs_eager(tscene) -> dict:
     require(extra[1] > 0 and int(got["state.bank.count"].sum()) > 0,
             f"the bank took no part in the step: {report}")
     return report
+
+
+# --------------------------------------------------------------------------
+# slice 11: the per-step training bundle (the gather kernels inside the
+# run program, as their cmlpl operators)
+# --------------------------------------------------------------------------
+
+# the default f32 CMLPL run with kernel 1 twice a step inside the program
+# (--gather_impl pallas), its depth cut to 2 epochs (156 steps) for the
+# smoke's time, its width not
+PER_STEP_BUNDLE = ("--gather_impl", "pallas", "--num_epochs", "2")
+PER_STEP_BUNDLE_STEPS = 2 * 78
+#: each per-step mode's operator in its run program
+PER_STEP_OPS = {"xla": [], "pallas": ["cmlpl::gather_patches_f32"],
+                "pallas_bf16": ["cmlpl::gather_patches_bf16"]}
+
+
+def per_step_steps_vs_eager(tscene) -> dict:
+    """(a) Each per-step mode's one-step program (``.module()``, no
+    AOTInductor compile) of the default f32 config, noise and dropout on,
+    against the eager step of its mode on the same counter-stream draws
+    (:func:`one_step_program_vs_eager`): "pallas" and "pallas_bf16" gather
+    by their kernel's operator inside the program, "xla" by the plain
+    gather; the step-1 gradients within ``CARD_CPU_GRAD_TOL`` of each
+    tensor's largest (a "pallas_bf16" step is an f32 step on
+    bf16-quantised patches, the same in both), the losses at the card's
+    f32 loss bounds."""
+    from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    report = {}
+    for mode, ops in PER_STEP_OPS.items():
+        trainer = CMLPLTrainer(CMLPLConfig(num_epochs=1, gather_impl=mode),
+                               device=torch.device("cuda"))
+        step = one_step_program_vs_eager(tscene, trainer)
+        got, metrics = step["got"], step["metrics"]
+        losses = {k: (float(got[f"metrics.{k}"].reshape(-1)[0]), float(v))
+                  for k, v in metrics.items()}
+        report[mode] = {"export_s": step["export_s"],
+                        "custom_ops": step["meta"]["custom_ops"],
+                        "program_launches": step["program_launches"],
+                        "step1_grad_max_diff_of_tensor_max":
+                        step["grad_err"], "losses_program_eager": losses}
+        emit({"phase": "train_bundle_per_step_vs_eager", "gather_impl": mode,
+              "steps": 1, **report[mode]})
+        require(step["meta"]["gather_impl"] == mode
+                and step["meta"]["custom_ops"] == ops,
+                f"{mode} program: meta {step['meta']}")
+        # a kernel mode's step launches its kernel twice, the plain
+        # gather's none
+        want = {"gather_patches_f32": 2 * (mode == "pallas"),
+                "gather_patches_bf16": 2 * (mode == "pallas_bf16")}
+        require(step["program_launches"] == want,
+                f"{mode} program: kernel launches {step['program_launches']}"
+                " in one step")
+        require(step["grad_err"] <= CARD_CPU_GRAD_TOL,
+                f"{mode} program vs eager step: step-1 gradients "
+                f"{step['grad_err']}")
+        for k, (a, b) in losses.items():
+            if k in ("acc", "mask_rate"):
+                continue       # argmax and threshold decisions
+            require(np.isclose(a, b, rtol=CARD_CPU_LOSS_RTOL,
+                               atol=CARD_CPU_LOSS_ATOL),
+                    f"{mode} program vs eager step {k}: {a} vs {b}")
+    return report
+
+
+def run_per_step_bundle_child(tmp) -> dict:
+    """(b) ``cli.export_model --train_bundle --gather_impl pallas`` of the
+    default f32 CMLPL run, 2 epochs, at PaviaU width, exported and
+    compiled by AOTInductor; then its package run in this process (no
+    other trace here) by ``aoti_load_package``: once to warm up, once
+    under the profiler, which must see kernel 1 launched on the card 2 a
+    step, as the operator's wrapper counts it.  Returns the bundle's path,
+    the export's numbers, the launches, kernel 1's device µs a launch
+    inside the program, the Python run's wall ms (the card shared with the
+    smoke's other phases) and its outputs' step-0 metrics."""
+    import torch._inductor
+
+    from cmlpl_tpu_torch.device import compute_precision
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS, gather_patches_f32
+
+    built = export_train_bundle(tmp, "bundle_per_step", PER_STEP_BUNDLE)
+    bundle = built["bundle"]
+    with open(os.path.join(bundle, "meta.json")) as f:
+        meta = json.load(f)
+    require(meta["gather_impl"] == "pallas"
+            and meta["custom_ops"] == PER_STEP_OPS["pallas"]
+            and "pool_idx" not in meta["input_names"]
+            and meta["num_epochs"] * meta["batches_per_epoch"]
+            == PER_STEP_BUNDLE_STEPS, f"per-step bundle meta {meta}")
+    package = torch._inductor.aoti_load_package(
+        os.path.join(bundle, "model.pt2"))
+    args = [torch.from_numpy(np.load(os.path.join(
+        bundle, "inputs", n + ".npy"))).cuda() for n in meta["input_names"]]
+    outs = []
+    with compute_precision(meta["compute_dtype"]):
+        package(*args)
+        for wrapper in WRAPPERS:
+            wrapper.launches = 0
+        dev_ms, counts, wall_ms = profiled(
+            lambda: outs.append(package(*args)), [()])
+    launched = {"gather_patches_f32": gather_patches_f32.launches,
+                "gather_patches_bf16": WRAPPERS[1].launches}
+    keys = [k for k in counts if KERNEL_NEEDLE in k]
+    device_launches = sum(counts[k] for k in keys)
+    step0 = {n: float(o.reshape(-1)[0]) for n, o in
+             zip(meta["output_names"], outs[0]) if n.startswith("metrics.")}
+    report = {"phase": "train_bundle_per_step_python",
+              "steps": PER_STEP_BUNDLE_STEPS,
+              "kernel_device_launches": device_launches,
+              "kernel_names": keys,
+              "kernel_device_us_per_launch":
+              sum(dev_ms[k] for k in keys) / max(device_launches, 1) * 1e3,
+              "wrapper_launches": launched, "python_package_run_ms": wall_ms,
+              "note": "the compiled package in Python, under the profiler "
+                      "(card activity), beside the smoke's other phases"}
+    emit(report)
+    want = 2 * PER_STEP_BUNDLE_STEPS
+    require(device_launches == want,
+            f"kernel 1 launched {device_launches} times on the card inside "
+            f"the per-step program, not {want}: {keys}")
+    require(launched == {"gather_patches_f32": want,
+                         "gather_patches_bf16": 0},
+            f"the per-step program's wrapper launches {launched}")
+    return {"bundle": bundle, "export": built["export"], **report,
+            "step0": step0}
 
 
 def export_train_bundle(tmp, name: str, extra=()) -> dict:
@@ -2836,8 +3104,9 @@ def run_train_bundle_child(tmp) -> dict:
 
 def run_bundle_checks_child() -> dict:
     """The run program's checks that need no compiled bundle: (a)
-    :func:`bundle_vs_eager_epoch`, (d) :func:`threefry_card_vs_cpu` and
-    (e) :func:`bundle_memobank_step_vs_eager`.  Returns what the
+    :func:`bundle_vs_eager_epoch`, (d) :func:`threefry_card_vs_cpu`, (e)
+    :func:`bundle_memobank_step_vs_eager` and the per-step modes' one-step
+    programs (:func:`per_step_steps_vs_eager`).  Returns what the
     ``train_bundle`` phases report of them."""
     from cmlpl_tpu_torch.data.io import synthetic_scene
     from cmlpl_tpu_torch.data.prep import prepare_scene
@@ -2848,10 +3117,15 @@ def run_bundle_checks_child() -> dict:
     epoch = bundle_vs_eager_epoch(tscene)
     bits = threefry_card_vs_cpu()
     step = bundle_memobank_step_vs_eager(tscene)
-    return {"vs_eager_bitwise_params": epoch["bitwise_params"],
+    per_step = per_step_steps_vs_eager(tscene)
+    return {"per_step": per_step,
+            "vs_eager_bitwise_params": epoch["bitwise_params"],
             "threefry_card_equals_cpu": bits["card_equals_cpu"],
             "memobank_step1_grad_max_diff_of_tensor_max":
-            step["step1_grad_max_diff_of_tensor_max"]}
+            step["step1_grad_max_diff_of_tensor_max"],
+            "per_step_step1_grad_max_diff_of_tensor_max": {
+                mode: r["step1_grad_max_diff_of_tensor_max"]
+                for mode, r in per_step.items()}}
 
 
 CHILD = """
@@ -3082,7 +3356,91 @@ def phase_train_bundle(child: dict, tmp, eager: dict, eager_memobank: dict,
     require(mlaunches == (406, 0), f"memobank predict launches {mlaunches}")
     require(int(bank_count.sum()) > 0, "the memobank run filled no bank")
     require(macc.oa > 0.5, f"the memobank bundle's OA {macc.oa}")
-    return {"predict": launches[0], "predict_memobank": mlaunches[0]}
+    return {"predict": launches[0], "predict_memobank": mlaunches[0],
+            "ms_per_step": report["ms_per_step"]}
+
+
+def phase_train_bundle_per_step(child: dict, tmp, pool_bundle: dict,
+                                eager_per_step: dict, one_step: dict,
+                                counter_fn) -> dict:
+    """(c) The per-step bundle (kernel 1 twice a step inside the program,
+    2 epochs) run by the C++ runner with the operators' library loaded
+    (``run_host_io`` passes ``--op_library``; twice); its ``ms_per_step``
+    beside the pool bundle's (``pool_bundle``, the same run) and the eager
+    ``--gather_impl pallas`` epoch's (``eager_per_step``, phase
+    ``train_pallas``); the runner's step-0 metrics at the card-vs-CPU loss
+    bounds of the Python package's (``child``).  (d) ``--import_run`` of
+    its outputs, mapped by ``predict --checkpoint_dir --net b``: OA over
+    50.  ``one_step``: the per-step modes' one-step programs against the
+    eager steps (:func:`per_step_steps_vs_eager`), reported here.  Returns
+    the map's kernel-1 launches."""
+    from cmlpl_tpu_torch.cli import export_model
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.eval.metrics import cal_accuracy
+    from cmlpl_tpu_torch.native.aoti_launcher import run_host_io
+
+    bundle = child["bundle"]
+    with open(os.path.join(bundle, "meta.json")) as f:
+        meta = json.load(f)
+    out = os.path.join(tmp, "runner_per_step_out")
+    runner = run_host_io(bundle, os.path.join(bundle, "inputs"), out,
+                         repeat=2, timeout=600)
+    outs = {n: np.load(os.path.join(out, n + ".npy"))
+            for n in meta["output_names"]}
+    for n, v in outs.items():
+        require(np.all(np.isfinite(v)), f"per-step runner output {n} not "
+                "finite")
+    step0 = {n: (float(outs[n].reshape(-1)[0]), child["step0"][n])
+             for n in child["step0"]}
+    flags = ["--dataID", str(DATA_ID), "--data_root", tmp]
+    ck = os.path.join(tmp, "ckpt_per_step")
+    run_cli(export_model.main, flags + list(PER_STEP_BUNDLE) + [
+        "--import_run", bundle, out, "--checkpoint_dir", ck], counter_fn)
+    pred, launches = predict_map(flags + [
+        "--checkpoint_dir", ck, "--net", "b", "--n_PC", str(N_PC),
+        "--w", str(W), "--val_batch_size", str(TILE),
+        "--out", os.path.join(tmp, "bundle_per_step_map.svg")], counter_fn)
+    cube, gt = synthetic_scene(DATA_ID)
+    labels = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                           n_pc=N_PC, device="cpu").labels
+    splits = generate_splits(labels, num_label=5)
+    acc = cal_accuracy(pred[splits.test], labels[splits.test] - 1)
+    cls = outs["metrics.cls_loss"].mean(axis=1)
+    report = {"phase": "train_bundle_per_step", "card": card_name_and_power(),
+              "steps": PER_STEP_BUNDLE_STEPS, "gather_impl": "pallas",
+              "custom_ops": meta["custom_ops"], **child["export"],
+              "runner": runner,
+              "ms_per_step": runner["run_ms_min"] / PER_STEP_BUNDLE_STEPS,
+              "pool_bundle_ms_per_step": pool_bundle["ms_per_step"],
+              "eager_pallas_epoch_ms_per_step":
+              eager_per_step["pallas"]["ms_per_step"],
+              "kernel_device_launches_python":
+              child["kernel_device_launches"],
+              "kernel_device_us_per_launch":
+              child["kernel_device_us_per_launch"],
+              "python_package_run_ms": child["python_package_run_ms"],
+              "runner_vs_python_step0_metrics": step0,
+              "one_step_programs_vs_eager": {
+                  mode: {k: r[k] for k in (
+                      "step1_grad_max_diff_of_tensor_max",
+                      "program_launches", "export_s")}
+                  for mode, r in one_step.items()},
+              "cls_loss_by_epoch": cls.tolist(), "oa_bundle_net_b": acc.oa,
+              "predict_launches": launches,
+              "note": "ms_per_step: the runner's run_ms_min over the run's "
+                      "steps; the pool bundle's is the 20-epoch run's, the "
+                      "eager one phase train_pallas's epoch"}
+    emit(report)
+    for n, (a, b) in step0.items():
+        require(np.isclose(a, b, rtol=CARD_CPU_LOSS_RTOL,
+                           atol=CARD_CPU_LOSS_ATOL),
+                f"per-step runner vs Python package, step 0 {n}: {a} vs {b}")
+    require(launches == (406, 0), f"per-step predict launches {launches}")
+    require(cls[-1] < cls[0], f"per-step bundle cls_loss by epoch {cls}")
+    require(acc.oa > 0.5, f"the per-step bundle's OA {acc.oa}")
+    return {"predict": launches[0]}
 
 
 def watch_host_memory(low: list, stop: threading.Event) -> None:
@@ -3151,7 +3509,10 @@ def main() -> int:
                             "run_train_bundle_child",
                             os.path.join(child_tmp, "bundles")),
                 start_child(os.path.join(child_tmp, "checks"),
-                            "run_bundle_checks_child")]
+                            "run_bundle_checks_child"),
+                start_child(os.path.join(child_tmp, "per_step"),
+                            "run_per_step_bundle_child",
+                            os.path.join(child_tmp, "per_step"))]
 
     def stop_children():
         for proc, _, _ in children:
@@ -3169,6 +3530,8 @@ def main() -> int:
     emit({"phase": "build", "build_s": time.perf_counter() - t0,
           "library": os.path.relpath(lib_path, ROOT),
           "ptxas": [ln for ln in ptxas.splitlines() if "Used" in ln]})
+    # the operators' C++ library (g++ against torch), after the runner
+    op_build = host_pool.submit(timed_build, _build.op_library)
 
     def counter_fn():
         return (gather_patches_f32.launches, gather_patches_bf16.launches)
@@ -3190,8 +3553,17 @@ def main() -> int:
     num_maps_tiles = -(-scene.num_pixels // TILE)
     require(num_maps_tiles == 406, f"{num_maps_tiles} tiles per map")
 
-    # 2. kernels vs plain, times and bounds
+    # 2. kernels vs plain, times and bounds; their operators (Python here,
+    # C++ in a process of its own that loads the runner's library)
     kernel_report = phase_kernels(scene, device)
+    op_path, op_build_s = op_build.result()
+    emit({"phase": "build_operators", "build_s": op_build_s,
+          "library": os.path.relpath(op_path, ROOT)})
+    cxx_child = start_child(
+        os.path.join(child_tmp, "cxx_ops"), "run_cxx_operator_checks",
+        op_path, map_tile_group(W, N_PC, 4), map_tile_group(W, N_PC, 2),
+        nice=0)
+    children.append(cxx_child)
 
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "w.npz")
@@ -3425,10 +3797,20 @@ def main() -> int:
     # 8. the training-run bundles (slices 9 and 10): the 20-epoch CMLPL
     # run as one program, run by the runner and in Python, imported and
     # mapped; the 2-epoch memory-bank run by the runner, imported, mapped
+    cxx_ops = finish_child(cxx_child)
+    for name, err in cxx_ops["max_abs_err"].items():
+        kernel_report[name]["max_abs_err"] = max(
+            kernel_report[name]["max_abs_err"], err)
     child = {**finish_child(children[0]), **finish_child(children[1])}
+    per_step_child = finish_child(children[2])
     with tempfile.TemporaryDirectory() as tmp:
         bundle_launches = phase_train_bundle(child, tmp, eager_cmlpl,
                                              extras["memobank"], counter_fn)
+        # 9. the per-step bundle (slice 11): kernel 1 as its operator
+        # inside the run program, run by the runner and in Python
+        per_step_launches = phase_train_bundle_per_step(
+            per_step_child, tmp, bundle_launches, per_step,
+            child["per_step"], counter_fn)
     stop_children()
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"]
@@ -3456,7 +3838,16 @@ def main() -> int:
             "run, one map": bundle_launches["predict"],
             "cli.predict --checkpoint_dir of the imported memobank "
             "training-bundle run, one map":
-            bundle_launches["predict_memobank"]},
+            bundle_launches["predict_memobank"],
+            "cli.export_model --train_bundle --gather_impl pallas, 2 "
+            "epochs: the compiled package in Python, its operator's "
+            "launches": per_step_child["wrapper_launches"][
+                "gather_patches_f32"],
+            "cli.export_model --train_bundle --gather_impl pallas, 2 "
+            "epochs: the compiled package in Python, kernel 1 on the card "
+            "(profiler)": per_step_child["kernel_device_launches"],
+            "cli.predict --checkpoint_dir of the imported per-step "
+            "training-bundle run, one map": per_step_launches["predict"]},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
             per_step["pallas_bf16"]["launches_training"][1],

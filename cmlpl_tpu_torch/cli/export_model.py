@@ -36,7 +36,13 @@ The training run as a bundle (``cmlpl_tpu/cli/export_model.py:37-90``):
 ``--train_bundle`` writes the whole CMLPL run at the training flags as one
 AOTInductor package with its inputs (``utils/export.build_run_exported``,
 ``save_run_bundle``): the initial state of ``cli.train``'s serial run 0
-for ``--seed``, the scene, the pool and the schedule.  ``--import_run``
+for ``--seed``, the scene, the pool and the schedule.  Under a per-step
+``--gather_impl`` (``xla``, ``pallas``, ``pallas_bf16``, or ``auto``
+over the pool's budget) the program has no pool and gathers each step at
+its pixel ids, inside the program: by the plain gather, or by kernel 1 or
+2 as the operator ``cmlpl::gather_patches_f32`` or ``_bf16``, which the
+runner loads from the operators' library (``--op_library``; a kernel
+mode's bundle is for ``--platform cuda`` only).  ``--import_run``
 turns a run's outputs into ``<CK>/<step>/state.npz``, from which
 ``predict``/``serve --checkpoint_dir`` map; the checkpoint has no
 ``generator.npy`` (a restore seeds the generator as ``state_from_jax``
@@ -95,11 +101,8 @@ def _export_train_bundle(args) -> str:
     spec, scene, _, sampler = build_data(args, device)
     trainer = CMLPLTrainer(build_config(args, spec), device=device)
     t0 = time.perf_counter()
-    try:
-        meta, exported, inputs = build_run_exported(
-            trainer, scene, sampler, (args.seed, 0), platform=platform)
-    except NotImplementedError as e:
-        raise SystemExit(f"--train_bundle: {e}") from None
+    meta, exported, inputs = build_run_exported(
+        trainer, scene, sampler, (args.seed, 0), platform=platform)
     export_s = time.perf_counter() - t0
     meta.update({"dataset": spec.name, "dataID": spec.data_id,
                  "seed": args.seed})
@@ -112,7 +115,9 @@ def _export_train_bundle(args) -> str:
           f"{len(inputs)} inputs ({n_bytes / 1e6:.1f} MB), "
           f"{len(meta['output_names'])} outputs, "
           f"platforms={meta['platforms']} export_s={export_s:.3f} "
-          f"aoti_compile_s={compile_s:.3f}")
+          f"aoti_compile_s={compile_s:.3f} "
+          f"gather_impl={meta['gather_impl']} "
+          f"custom_ops={','.join(meta['custom_ops']) or '-'}")
     return args.train_bundle
 
 
@@ -152,9 +157,11 @@ def main(argv=None):
                    help="instead of a predictor, export the WHOLE CMLPL "
                         "training run at the training flags into this dir "
                         "(model.pt2 + signature.txt + meta.json + "
-                        "inputs/*.npy: init state, scene, pool, schedule); "
+                        "inputs/*.npy: init state, scene, the pool or, "
+                        "under a per-step --gather_impl, none, schedule); "
                         "the runner then trains with no Python: aoti_host "
-                        "--bundle DIR --inputs DIR/inputs --outdir OUT")
+                        "--bundle DIR --inputs DIR/inputs --outdir OUT "
+                        "[--op_library LIB, for a kernel --gather_impl]")
     p.add_argument("--import_run", nargs=2, default=None,
                    metavar=("BUNDLE", "OUTDIR"),
                    help="import a runner's training outputs (aoti_host "

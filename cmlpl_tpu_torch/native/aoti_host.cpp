@@ -13,14 +13,23 @@
 //                   (a training bundle: the state, scene and schedule ->
 //                   the final state and the metrics)
 //   meta.json       the artifact's metadata; the runner reads its
-//                   "platforms" (the default --device) and "compute_dtype"
+//                   "platforms" (the default --device), "compute_dtype"
+//                   and "custom_ops" (the operators the package calls by
+//                   name, which no libtorch has: a training bundle with a
+//                   kernel gather holds cmlpl::gather_patches_f32 or _bf16)
+//
+// A bundle whose meta names custom_ops runs only with --op_library LIB,
+// the library that registers them (ops/_build.op_library, built from
+// csrc/gather_ops.cpp): it is loaded before the package, and the runner
+// fails, naming what is missing, where it cannot be loaded or leaves an
+// operator unregistered.  No operator ever falls back to another gather.
 //
 // Usage:
 //   aoti_host --bundle DIR --cube C.npy --spectra S.npy --out O.npy
 //       [--repeat N] [--device cuda|cpu]
 //     prints one JSON line: load_ms, run_ms_min, run_ms_mean, repeat
 //   aoti_host --bundle DIR --inputs IN --outdir OUT [--repeat N]
-//       [--device cuda|cpu]
+//       [--device cuda|cpu] [--op_library LIB]
 //     the N-ary mode of a training bundle (utils/export.save_run_bundle):
 //     reads IN/<name>.npy for every signature input, runs the package,
 //     writes OUT/<name>.npy for every output; prints one JSON line:
@@ -41,8 +50,10 @@
 // bundle computes in f32.
 #include <ATen/ATen.h>
 #include <ATen/Context.h>
+#include <ATen/core/dispatch/Dispatcher.h>
 #include <torch/csrc/inductor/aoti_package/model_package_loader.h>
 #include <torch/cuda.h>
+#include <dlfcn.h>
 
 #include <chrono>
 #include <cstdint>
@@ -178,6 +189,39 @@ std::string JsonWord(const std::string& text, const std::string& key) {
       q1 == std::string::npos)
     return "";
   return text.substr(q0 + 1, q1 - q0 - 1);
+}
+
+// Every string of the list value of "key" ("custom_ops": ["cmlpl::a",
+// "cmlpl::b"] gives both); none when the key is absent or its list empty.
+std::vector<std::string> JsonWords(const std::string& text,
+                                   const std::string& key) {
+  std::vector<std::string> words;
+  size_t p = text.find("\"" + key + "\"");
+  if (p == std::string::npos) return words;
+  size_t l = text.find('[', p);
+  size_t r = text.find(']', l);
+  if (l == std::string::npos || r == std::string::npos) return words;
+  for (size_t q0 = text.find('"', l); q0 < r;
+       q0 = text.find('"', text.find('"', q0 + 1) + 1))
+    words.push_back(text.substr(q0 + 1, text.find('"', q0 + 1) - q0 - 1));
+  return words;
+}
+
+// Loads the library that registers the bundle's custom operators and
+// holds each to be registered.
+void LoadOpLibrary(const std::vector<std::string>& ops,
+                   const std::string& library) {
+  if (ops.empty()) return;
+  std::string names;
+  for (const std::string& op : ops) names += (names.empty() ? "" : ", ") + op;
+  if (library.empty())
+    Die("the bundle calls " + names + ": pass --op_library, the library "
+        "that registers them (cmlpl_tpu_torch.ops._build.op_library)");
+  if (dlopen(library.c_str(), RTLD_NOW | RTLD_GLOBAL) == nullptr)
+    Die("cannot load --op_library " + library + ": " + dlerror());
+  for (const std::string& op : ops)
+    if (!c10::Dispatcher::singleton().findSchema({op, ""}).has_value())
+      Die("--op_library " + library + " registers no " + op);
 }
 
 // ------------------------------------------------------------- signature
@@ -341,7 +385,8 @@ int main(int argc, char** argv) {
 }
 
 static int RunMain(int argc, char** argv) {
-  std::string bundle, cube, spectra, out_path, device_name, in_dir, out_dir;
+  std::string bundle, cube, spectra, out_path, device_name, in_dir, out_dir,
+      op_library;
   int repeat = 1;
   bool serve = false;
   for (int i = 1; i < argc; ++i) {
@@ -359,6 +404,7 @@ static int RunMain(int argc, char** argv) {
     else if (a == "--serve") serve = true;
     else if (a == "--inputs") in_dir = next();
     else if (a == "--outdir") out_dir = next();
+    else if (a == "--op_library") op_library = next();
     else if (a == "--dump_signature") {
       Signature sig = ParseSignature(next() + "/signature.txt");
       for (const ArgSpec& s : sig.inputs)
@@ -382,7 +428,7 @@ static int RunMain(int argc, char** argv) {
   if (bundle.empty() || repeat < 1)
     Die("usage: aoti_host --bundle DIR [--cube C --spectra S --out O "
         "[--repeat N] | --inputs DIR --outdir DIR [--repeat N] | --serve] "
-        "[--device cuda|cpu]");
+        "[--device cuda|cpu] [--op_library LIB]");
 
   std::string meta = ReadFile(bundle + "/meta.json");
   std::string platform = JsonWord(meta, "platforms");
@@ -403,6 +449,8 @@ static int RunMain(int argc, char** argv) {
   bool tf32 = precision == "bfloat16";
   at::globalContext().setAllowTF32CuDNN(tf32);
   at::globalContext().setAllowTF32CuBLAS(tf32);
+
+  LoadOpLibrary(JsonWords(meta, "custom_ops"), op_library);
 
   Host host;
   host.device = device_name == "cuda" ? at::Device(at::kCUDA, 0)

@@ -17,12 +17,12 @@ CUDA libraries are linked when that torch has CUDA.
 from __future__ import annotations
 
 import hashlib
-import inspect
 import json
 import os
-import re
 import subprocess
 import threading
+
+from cmlpl_tpu_torch.ops._build import torch_cxx_flags, torch_libs
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "aoti_host.cpp")
@@ -31,33 +31,14 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _lock = threading.Lock()
 
 
-def _cxx_std() -> str:
-    """The newest ``-std=c++NN`` that the installed torch builds its own
-    C++ extensions with: the standard its headers are written for."""
-    from torch.utils import cpp_extension
-
-    found = re.findall(r"-std=c\+\+(\d+)", inspect.getsource(cpp_extension))
-    return f"-std=c++{max(found, key=int)}" if found else "-std=c++17"
-
-
 def build_command(out_path: str) -> list[str]:
     """The ``g++`` command that builds the runner into ``out_path``."""
     import torch
 
-    root = os.path.dirname(torch.__file__)
-    lib = os.path.join(root, "lib")
-    libs = ["-ltorch", "-ltorch_cpu", "-lc10"]
-    if torch.version.cuda is not None:
-        libs += ["-ltorch_cuda", "-lc10_cuda"]
-    return ["g++", "-O2", _cxx_std(), "-fPIC",
-            f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
-            "-I", os.path.join(root, "include"),
-            "-I", os.path.join(root, "include", "torch", "csrc", "api",
-                               "include"),
-            SRC, "-o", out_path, "-L", lib, f"-Wl,-rpath,{lib}",
+    return ["g++", "-O2", "-fPIC", *torch_cxx_flags(), SRC, "-o", out_path,
             # keep libtorch_cuda though no symbol of it is named: loading it
             # registers the CUDA backend
-            "-Wl,--no-as-needed", *libs]
+            *torch_libs(cuda=torch.version.cuda is not None), "-ldl"]
 
 
 def _host_path() -> str:
@@ -115,13 +96,21 @@ def run_host_io(bundle: str, inputs_dir: str, outdir: str, *,
                 timeout: float | None = None) -> dict:
     """A training bundle's run (``--inputs --outdir``): reads
     ``<inputs_dir>/<name>.npy`` for every signature input and writes
-    ``<outdir>/<name>.npy`` for every output.  Returns the runner's JSON
-    line (``load_ms``, ``run_ms_min``, ``run_ms_mean``, ``repeat``,
-    ``num_inputs``, ``num_outputs``, ``device``) as a dict."""
+    ``<outdir>/<name>.npy`` for every output.  A bundle whose
+    ``meta.json`` names ``custom_ops`` (a kernel gather's) runs with
+    ``--op_library``, the operators' library (``ops/_build.op_library``,
+    built at first use).  Returns the runner's JSON line (``load_ms``,
+    ``run_ms_min``, ``run_ms_mean``, ``repeat``, ``num_inputs``,
+    ``num_outputs``, ``device``) as a dict."""
+    from cmlpl_tpu_torch.ops._build import op_library
+
     os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(bundle, "meta.json")) as f:
+        ops = json.load(f).get("custom_ops")
+    extra = ["--op_library", op_library()] if ops else []
     return _run(["--bundle", bundle, "--inputs", inputs_dir, "--outdir",
-                 outdir, "--repeat", str(repeat), "--device", device],
-                timeout)
+                 outdir, "--repeat", str(repeat), "--device", device,
+                 *extra], timeout)
 
 
 def main(argv=None):

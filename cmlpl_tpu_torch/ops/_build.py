@@ -6,6 +6,13 @@ library lands in ``cmlpl_tpu_torch/_build/`` (git-ignored), named by a
 hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing is built at import time: the first
 call of :func:`library` builds, later calls return the loaded library.
+
+:func:`op_library` builds the kernels' operators for a process with no
+Python (``csrc/gather_ops.cpp``, ``TORCH_LIBRARY(cmlpl)``: the native
+runner loads it before a package that calls them): ``g++`` against the
+installed torch's headers and the CUDA toolkit's, linked to the kernel
+library, into the same directory, named by a hash of its sources, its
+command and the kernel library's name.
 """
 
 from __future__ import annotations
@@ -89,3 +96,76 @@ def library() -> ctypes.CDLL:
                 fn.restype = restype
             _lib = lib
         return _lib
+
+
+OP_SOURCES = ("gather_ops.cpp", "gather_plan.h")
+
+
+def torch_cxx_flags() -> list[str]:
+    """``g++`` flags of a source that includes the installed torch's
+    headers: its C++ standard, its C++ ABI and its include paths."""
+    import inspect
+    import re
+
+    import torch
+    from torch.utils import cpp_extension
+
+    found = re.findall(r"-std=c\+\+(\d+)",
+                       inspect.getsource(cpp_extension))
+    std = f"-std=c++{max(found, key=int)}" if found else "-std=c++17"
+    root = os.path.dirname(torch.__file__)
+    return [std, "-D_GLIBCXX_USE_CXX11_ABI="
+            f"{int(torch._C._GLIBCXX_USE_CXX11_ABI)}",
+            "-I", os.path.join(root, "include"),
+            "-I", os.path.join(root, "include", "torch", "csrc", "api",
+                               "include")]
+
+
+def torch_libs(cuda: bool) -> list[str]:
+    """Link flags of the installed torch's libraries (its CUDA ones when
+    ``cuda``), with an rpath to them."""
+    import torch
+
+    lib = os.path.join(os.path.dirname(torch.__file__), "lib")
+    libs = ["-ltorch", "-ltorch_cpu", "-lc10"]
+    if cuda:
+        libs += ["-ltorch_cuda", "-lc10_cuda"]
+    return ["-L", lib, f"-Wl,-rpath,{lib}", "-Wl,--no-as-needed", *libs]
+
+
+def op_library_command(out_path: str, kernels: str) -> list[str]:
+    """The ``g++`` command that builds the operators into ``out_path``,
+    linked to the kernel library at ``kernels``."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return ["g++", "-O2", "-fPIC", "-shared", *torch_cxx_flags(),
+            "-I", os.path.join(cuda_home, "include"),
+            os.path.join(CSRC, "gather_ops.cpp"), "-o", out_path, kernels,
+            f"-Wl,-rpath,{BUILD_DIR}", *torch_libs(cuda=True)]
+
+
+def _op_library_path(kernels: str) -> str:
+    h = hashlib.sha256(" ".join(op_library_command("", kernels)).encode())
+    for name in OP_SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"libcmlpl_ops_{h.hexdigest()[:16]}.so")
+
+
+def op_library() -> str:
+    """The operator library's path, built (with the kernel library) if it
+    is missing.  Raises RuntimeError with the compiler's output on
+    failure."""
+    kernels, _ = build()
+    path = _op_library_path(kernels)
+    with _lock:
+        if os.path.exists(path):
+            return path
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run(op_library_command(tmp, kernels),
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}) building "
+                               f"the operators:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, path)
+        return path

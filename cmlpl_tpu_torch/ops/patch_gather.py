@@ -27,6 +27,13 @@ A wrapper given CPU tensors runs the plain version,
 :func:`cmlpl_tpu_torch.data.patches.gather_patches`.  Given CUDA
 tensors it launches its kernel or raises: it never falls back to the plain
 version.  ``<wrapper>.launches`` counts the kernel launches.
+
+Each wrapper is also an operator, ``cmlpl::gather_patches_f32`` and
+``cmlpl::gather_patches_bf16`` (:data:`OP_SCHEMAS`), with the same
+contract and a fake kernel, so that a traced training step holds a kernel
+gather as one node and an exported run program carries it; the per-step
+training gathers call them.  ``csrc/gather_ops.cpp`` registers the same
+schemas in C++ for the native runner, which has no Python.
 """
 
 from __future__ import annotations
@@ -241,6 +248,54 @@ WRAPPERS = (gather_patches_f32, gather_patches_bf16)
 
 
 # --------------------------------------------------------------------------
+# The kernels as operators that an exported graph carries
+# --------------------------------------------------------------------------
+
+#: the operators' namespace
+OP_NAMESPACE = "cmlpl"
+#: each wrapper's operator schema.  ``csrc/gather_ops.cpp`` registers the
+#: same strings for the native runner, which has no Python (a CPU test
+#: holds the two equal).
+OP_SCHEMAS = {
+    "gather_patches_f32":
+    "gather_patches_f32(Tensor cube, Tensor idx, int cols, int w) -> Tensor",
+    "gather_patches_bf16":
+    "gather_patches_bf16(Tensor cube, Tensor idx, int cols, int w) -> Tensor",
+}
+
+
+def _register_ops() -> torch.library.Library:
+    """``cmlpl::gather_patches_f32`` and ``cmlpl::gather_patches_bf16``:
+    the wrappers as operators, so that ``make_fx`` and ``torch.export``
+    record a kernel gather as one opaque node, and an AOTInductor package
+    calls it by name.  Their CPU and CUDA kernels are the wrappers (the
+    plain gather on CPU tensors; on CUDA tensors a counted launch, or an
+    error); their fake kernel gives the plain gather's shape and dtype.
+    Nothing is built here: the first launch builds."""
+    lib = torch.library.Library(OP_NAMESPACE, "DEF")
+    for wrapper in WRAPPERS:
+        name = wrapper.__name__
+        lib.define(OP_SCHEMAS[name])
+
+        def kernel(cube, idx, cols, w, _wrapper=wrapper):
+            return _wrapper(cube, idx, cols=cols, w=w)
+
+        for key in ("CPU", "CUDA"):
+            lib.impl(name, kernel, key)
+        torch.library.register_fake(f"{OP_NAMESPACE}::{name}", _fake_gather,
+                                    lib=lib)
+    return lib
+
+
+def _fake_gather(cube, idx, cols, w):
+    return cube.new_empty((idx.shape[0], w, w, cube.shape[-1]))
+
+
+# held for the process's life: a Library's registrations go with it
+_OPS = _register_ops()
+
+
+# --------------------------------------------------------------------------
 # Training gathers (``cmlpl_tpu/ops/patch_gather.py:225-381``)
 # --------------------------------------------------------------------------
 
@@ -343,7 +398,10 @@ def make_train_gather(gather_impl: str, n_pc: int):
     ``gather(prepped, pixel_idx, cols, w)`` returns (B, w, w, n_pc)
     patches in the prepped cube's dtype: f32 from the plain gather
     ("xla") or kernel 1 ("pallas"), bf16 from kernel 2 ("pallas_bf16",
-    patch inputs bf16-quantised).  The trainer casts them to its input
+    patch inputs bf16-quantised).  The kernels are called as their
+    operators (``cmlpl::gather_patches_*``), so the same gather runs in
+    an eager step and, as one node, in a traced one
+    (``train/functional.RunStep``).  The trainer casts them to its input
     dtype (:func:`make_input_cast`): under f32 inputs that is the JAX
     callers' upcast of kernel 2's patches, under bf16 inputs there is
     nothing to cast.  The kernel needs no 128-channel pad, unlike the TPU
@@ -356,13 +414,15 @@ def make_train_gather(gather_impl: str, n_pc: int):
 
     if gather_impl == "pallas":
         def gather(prepped, pixel_idx, cols, w):
-            return gather_patches_f32(prepped, pixel_idx, cols=cols, w=w)
+            return torch.ops.cmlpl.gather_patches_f32(prepped, pixel_idx,
+                                                      cols, w)
 
         return (lambda padded: padded), gather
 
     if gather_impl == "pallas_bf16":
         def gather(cube, pixel_idx, cols, w):
-            out = gather_patches_bf16(cube, pixel_idx, cols=cols, w=w)
+            out = torch.ops.cmlpl.gather_patches_bf16(cube, pixel_idx, cols,
+                                                      w)
             return out[..., :n_pc]
 
         return (lambda padded: padded.to(torch.bfloat16)), gather

@@ -39,9 +39,10 @@ copy; the history is a list of dicts of floats, one per step.
 An exported training run (``utils/export.build_run_exported``) runs the
 same ``_draws`` and ``_losses`` as one program: ``train/functional.py``
 steps the state's tensors functionally, and a trainer names where its
-parts sit in the JAX state (``JAX_PARAMS``, ``JAX_OPTS``), what a run
-program cannot replay (``_check_run_exportable``) and its per-run inputs
-(``_run_extras``).
+parts sit in the JAX state (``JAX_PARAMS``, ``JAX_OPTS``) and its per-run
+inputs (``_run_extras``).  The program gathers as the trainer does: its
+pool once, or each step's patches by the plain gather or a kernel's
+operator.
 
 Fused multi-seed runs (:meth:`EpochDriver.train_multi_run`, the JAX
 package's ``cmlpl_tpu/train/driver.py:149-207``): N seeds' runs as one
@@ -446,16 +447,6 @@ class EpochDriver:
                         t.copy_(stacked[i])
             st.step = ms.step
         return ms.states
-
-    def _check_run_exportable(self) -> None:
-        """Raises NotImplementedError for what an exported training run
-        cannot replay (``utils/export.build_run_exported``): it gathers
-        the pool once, so it needs the pool mode."""
-        if self.config.gather_impl != "pool":
-            raise NotImplementedError(
-                "an exported training run gathers its pool once: it needs "
-                f"gather_impl 'pool' (or 'auto' resolving to it), not "
-                f"{self.config.gather_impl!r}")
 
     def _run_extras(self) -> tuple:
         """The run program's per-run inputs after the schedule

@@ -242,24 +242,42 @@ class RunStep:
     """``trainer``'s step as a pure function of a :class:`StateLayout`'s
     tensors (step layout).  ``state``: an eager state of the trainer,
     whose modules give the architecture and whose Adams the
-    hyperparameters; its own tensors are not read."""
+    hyperparameters; its own tensors are not read.  ``cols``: the scene's
+    columns, which a per-step gather (``gather_impl`` "xla", "pallas" or
+    "pallas_bf16") needs."""
 
-    def __init__(self, trainer, state, layout: StateLayout):
+    def __init__(self, trainer, state, layout: StateLayout,
+                 cols: int | None = None):
         self.trainer = trainer
         self.layout = layout
         self.modules = torch.nn.ModuleDict(trainer._modules(state))
         self.hyper = [adam_hyper(o) for o in trainer._opts(state)]
+        self.per_step = trainer.config.gather_impl != "pool"
+        if self.per_step and cols is None:
+            raise ValueError("a per-step gather needs the scene's cols")
+        self.cols = cols
 
     def __call__(self, tensors, xp_src, x_src, li, ly, ui, epoch,
                  batch_index, thr=None):
-        """One step on the pooled (or whole-cube) sources: ``li``/``ui``
-        rows of them, ``ly`` the labels; ``epoch``/``batch_index`` 0-d
-        integer tensors and ``thr`` CMLPL's adaptive threshold (0-d f32).
-        Returns (the new tensors, the step's metrics as 0-d tensors)."""
+        """One step on the sources: in pool mode the pooled patches and
+        spectra, ``li``/``ui`` rows of them; in a per-step mode the
+        prepared cube (``make_train_gather``'s ``prep_cube``) and the
+        spectra in the input dtype, ``li``/``ui`` pixel ids, whose patches
+        the mode's gather takes (the plain gather, or a kernel's
+        ``cmlpl::gather_patches_*`` operator, one node of a traced step)
+        and casts as the eager step does.  ``ly`` the labels;
+        ``epoch``/``batch_index`` 0-d integer tensors and ``thr`` CMLPL's
+        adaptive threshold (0-d f32).  Returns (the new tensors, the
+        step's metrics as 0-d tensors)."""
         tr = self.trainer
         st = self.layout.unpack(tensors)
         ly = ly.long()
-        xp_l, xp_u = (xp_src.index_select(0, i) for i in (li, ui))
+        if self.per_step:
+            w = tr.config.patch_size
+            xp_l, xp_u = (tr.cast(tr._gather(xp_src, i, self.cols, w))
+                          for i in (li, ui))
+        else:
+            xp_l, xp_u = (xp_src.index_select(0, i) for i in (li, ui))
         x_l, x_u = (x_src.index_select(0, i) for i in (li, ui))
         g = CounterStream(st["rng"], st["step"])
         d = tr._draws(g, xp_l, x_l, xp_u, x_u, ly)

@@ -22,10 +22,11 @@ Two containers, as in the JAX package:
 
 Gather modes: ``xla`` (the tiled map over the plain gather, its tile loop
 one ``while_loop`` operator, so the graph holds one copy of the net) and
-``dense`` (the dilated whole-scene pass).  The CUDA kernel modes
-are refused: the port's kernels are ``ctypes`` launches, which
-``torch.export`` cannot capture, as the JAX package refuses its Pallas
-modes.
+``dense`` (the dilated whole-scene pass).  The map's CUDA kernel modes
+are refused, as the JAX package refuses its Pallas modes: the map
+launches its kernel through ``ctypes``, which ``torch.export`` cannot
+capture.  The training run's per-step kernel gathers are exported, as
+their ``cmlpl`` operators (:func:`build_run_exported`).
 
 A program holds its weights on one device, so an artifact is for one
 platform, ``cuda`` or ``cpu``: an input on another device is refused.
@@ -332,6 +333,11 @@ def save_native_bundle(dir_path: str, meta: dict, exported, *,
     # inside a while_loop's body ("End index out of bounds")
     options = {"cpp.cxx": (None, inductor_cxx()),
                "allow_buffer_reuse": False}
+    if "bfloat16" in (meta["compute_dtype"], meta.get("model_dtype")):
+        # round a fused bf16 chain at every op, as eager does, so that the
+        # package maps as the in-process model does (a fusion that rounds
+        # once at its end moves ties)
+        options["emulate_precision_casts"] = True
     with (compute_precision(meta["compute_dtype"]),
           torch._inductor.config.patch(options)):
         torch._inductor.aoti_compile_and_package(exported,
@@ -348,9 +354,11 @@ def save_native_bundle(dir_path: str, meta: dict, exported, *,
 # --------------------------------------------------------------------------
 
 #: the run program's inputs after the state's leaves, in order: the scene,
-#: the pool, the (E, N, B) schedule (then a trainer's ``extra0``, ...)
+#: the pool, the (E, N, B) schedule (then a trainer's ``extra0``, ...); a
+#: per-step gather's program has no pool, and its ids are pixel ids
 RUN_INPUTS = ("padded_pca", "spectra", "pool_idx", "lab_idx", "lab_y",
               "unl_idx")
+RUN_INPUTS_PER_STEP = tuple(n for n in RUN_INPUTS if n != "pool_idx")
 
 
 def _canonical(t: torch.Tensor) -> torch.Tensor:
@@ -377,6 +385,30 @@ def _reshape_views(gm: torch.fx.GraphModule) -> torch.fx.GraphModule:
     return gm
 
 
+def _lift_constants(gm: torch.fx.GraphModule):
+    """The tensor constants that ``make_fx`` stored on ``gm`` (``get_attr``
+    nodes) turned into trailing inputs of the graph; returns (the graph,
+    the constants in the order of those inputs).  A loop body that reads a
+    tensor attribute keeps the value its export traced with, a fake
+    tensor; an input is the run program's buffer, passed in."""
+    inputs = {}         # attribute name -> (its placeholder, its value)
+    last = [n for n in gm.graph.nodes if n.op == "placeholder"][-1]
+    for node in list(gm.graph.nodes):
+        if node.op != "get_attr" or not isinstance(
+                getattr(gm, node.target, None), torch.Tensor):
+            continue
+        if node.target not in inputs:
+            with gm.graph.inserting_after(last):
+                last = gm.graph.placeholder(f"step_const{len(inputs)}")
+            inputs[node.target] = last, getattr(gm, node.target)
+        node.replace_all_uses_with(inputs[node.target][0])
+        gm.graph.erase_node(node)
+    for target in inputs:
+        delattr(gm, target)
+    gm.recompile()
+    return gm, [value for _, value in inputs.values()]
+
+
 def _trace_step(step, layout, example, *, batches: int, with_thr: bool):
     """``make_fx`` of the step at loop iteration ``i``: row ``i`` of the
     flat schedule, epoch ``i // N``, batch index ``i % N``; returns the
@@ -384,7 +416,8 @@ def _trace_step(step, layout, example, *, batches: int, with_thr: bool):
     order, as JAX flattens the metrics dict.  Traced with real tensors
     (``example``: ``i``, the state, then the key, the pooled sources, the
     flat schedule and the threshold table), so the step runs once.
-    Returns (the graph, the metric names)."""
+    Returns ((the graph, its tensor constants: :func:`_lift_constants`),
+    the metric names)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     n = len(layout.leaves) - 1
@@ -408,21 +441,30 @@ def _trace_step(step, layout, example, *, batches: int, with_thr: bool):
                 *(metrics[k] for k in names))
 
     gm = make_fx(iteration, tracing_mode="real")(*example)
-    return _reshape_views(gm), list(names)
+    return _lift_constants(_reshape_views(gm)), list(names)
 
 
-def _run_sources(layout, inputs, *, cast, cols: int, w: int,
+def _run_sources(layout, inputs, *, cast, prep_cube, cols: int, w: int,
                  with_thr: bool):
     """(the state in the step's layout without the key, the constants of
-    every step: the key, the pooled patches and spectra, the flat
-    (E·N, B) schedule, the threshold table), from the run's inputs."""
+    every step: the key, the step's sources, the flat (E·N, B) schedule,
+    the threshold table), from the run's inputs.  The sources are the
+    pooled patches and spectra, gathered once by the plain gather; or,
+    with ``prep_cube`` (a per-step gather's, ``make_train_gather``), the
+    prepared cube and the spectra in the input dtype, prepared once a
+    run, as JAX's ``prep_cube`` runs once a dispatch."""
     n = len(layout.leaves)
     state = [_canonical(t) for t in layout.to_torch(inputs[:n])]
     key = state.pop([lf.kind for lf in layout.leaves].index("rng"))
-    padded, spectra, pool_idx, li, ly, ui = inputs[n:n + 6]
-    thr = inputs[n + 6] if with_thr else torch.zeros(1, device=li.device)
-    xp_src = gather_patches(cast(padded), pool_idx, cols=cols, w=w)
-    x_src = cast(gather_spectra(spectra, pool_idx))
+    padded, spectra, *rest = inputs[n:]
+    if prep_cube is None:
+        pool_idx, *rest = rest
+        xp_src = gather_patches(cast(padded), pool_idx, cols=cols, w=w)
+        x_src = cast(gather_spectra(spectra, pool_idx))
+    else:
+        xp_src, x_src = prep_cube(padded), cast(spectra)
+    li, ly, ui = rest[:3]
+    thr = rest[3] if with_thr else torch.zeros(1, device=li.device)
     flat = (a.reshape(li.shape[0] * li.shape[1], -1) for a in (li, ly, ui))
     return state, (key.to(torch.int64), xp_src, x_src, *flat, thr)
 
@@ -433,11 +475,14 @@ class _RunProgram(nn.Module):
     the schedule, and CMLPL's per-epoch threshold in; the final leaves and
     every metric stacked (E, N) out.
 
-    The pool is gathered once by the plain gather (the kernels are
-    ``ctypes`` launches, which ``torch.export`` cannot capture; the JAX
-    run program's bulk gather is the plain gather too).  The E·N steps are
-    one functional ``while_loop`` carrying the state (step layout, all
-    but the key) and the metric buffers; the step is ``step_graph``,
+    The pool is gathered once by the plain gather (the JAX run program's
+    bulk gather is the plain gather too).  A per-step gather's program
+    has no pool: each step gathers at its ids, by the plain gather
+    ("xla") or by a kernel's operator ("pallas", "pallas_bf16": two
+    ``cmlpl::gather_patches_*`` nodes a step), as the JAX non-pool run
+    gathers by its Pallas kernel.  The E·N steps are one functional
+    ``while_loop`` carrying the state (step layout, all but the key) and
+    the metric buffers; the step is ``step_graph``,
     :class:`~cmlpl_tpu_torch.train.functional.RunStep` traced once
     (:func:`_trace_step`) with ``metrics`` metrics.  ``sources``: the
     keywords of :func:`_run_sources`."""
@@ -445,35 +490,47 @@ class _RunProgram(nn.Module):
     def __init__(self, layout, step_graph, metrics: int, sources: dict):
         super().__init__()
         self.layout = layout
-        self.step_graph = step_graph
+        self.step_graph, step_consts = step_graph
+        for i, t in enumerate(step_consts):
+            self.register_buffer(f"step_const{i}", t)
+        self.step_consts = len(step_consts)
         self.metrics = metrics
         self.sources = sources
 
     def forward(self, *inputs):
-        from torch._higher_order_ops.while_loop import while_loop
+        from torch._higher_order_ops.while_loop import while_loop_op
 
         state, consts = _run_sources(self.layout, inputs, **self.sources)
-        n = len(state)
+        consts = (*consts, *(getattr(self, f"step_const{i}")
+                             for i in range(self.step_consts)))
+        n, m = len(state), self.metrics
         steps = consts[3].shape[0]
         bufs = [torch.zeros(steps, device=consts[0].device)
-                for _ in range(self.metrics)]
+                for _ in range(m)]
 
-        def cond(i, *carry):
+        def cond(i, *args):
             return i < steps
 
-        def body(i, *carry):
-            out = self.step_graph(i, *carry[:n], *consts)
+        def body(i, *args):
+            carry, acc, fixed = args[:n], args[n:n + m], args[n + m:]
+            out = self.step_graph(i, *carry, *fixed)
             row = i.reshape(1)
             return (i + 1, *out[:n],
-                    *(buf.index_copy(0, row, m.reshape(1))
-                      for buf, m in zip(carry[n:], out[n:])))
+                    *(buf.index_copy(0, row, v.reshape(1))
+                      for buf, v in zip(acc, out[n:])))
 
+        # the loop operator itself, its constants passed in: ``while_loop``
+        # would first re-trace the step graph with Dynamo, which costs the
+        # export most of its time and adds nothing to a graph that
+        # ``make_fx`` already traced
         start = torch.zeros((), dtype=torch.int64, device=consts[0].device)
-        out = while_loop(cond, body, (start, *state, *bufs))[1:]
+        out = while_loop_op(cond, body, (start, *state, *bufs),
+                            tuple(consts))[1:]
         state = list(out[:n])
         rng_at = [lf.kind for lf in self.layout.leaves].index("rng")
         state.insert(rng_at, inputs[rng_at].clone())
-        shape = inputs[n + 1 + 3].shape[:2]       # lab_idx's (E, N)
+        # lab_idx's (E, N): it follows the leaves, the scene and any pool
+        shape = inputs[n + 3 + (self.sources["prep_cube"] is None)].shape[:2]
         return (*self.layout.to_jax(state),
                 *(m.reshape(shape) for m in out[n:]))
 
@@ -486,15 +543,23 @@ def build_run_exported(trainer, scene: PreparedScene, sampler, seed, *,
     The initial state is ``trainer.init_state(seed)`` (``cli.train``'s
     serial run ``(seed, 0)`` when ``seed`` is that pair) and the run's key
     ``core/rng.seed_key(seed)``; the schedule is drawn from ``sampler`` as
-    ``train_run`` draws it and pooled (``poolify_batches``).  The draws of
-    each step come from that key and the step number inside the program
-    (``core/rng.CounterStream``).  ``platform`` ("cuda" or "cpu", default
-    the trainer's device) must be the trainer's device type.
+    ``train_run`` draws it and, in pool mode, pooled
+    (``poolify_batches``).  The draws of each step come from that key and
+    the step number inside the program (``core/rng.CounterStream``).
+    ``platform`` ("cuda" or "cpu", default the trainer's device) must be
+    the trainer's device type.
+
+    The trainer's resolved ``gather_impl`` sets the program: "pool" (the
+    JAX pool bundle's inputs, :data:`RUN_INPUTS`), or a per-step gather,
+    "xla", "pallas" or "pallas_bf16" (the JAX non-pool bundle's,
+    :data:`RUN_INPUTS_PER_STEP`: pixel ids and no pool), whose kernel
+    modes hold their ``cmlpl::gather_patches_*`` operator, named in
+    ``meta["custom_ops"]``.
 
     Returns ``(meta, exported, inputs)``: ``inputs`` the ordered
     ``{name: numpy array}`` of the program's arguments, named as the JAX
-    bundle names them (``state.<path>`` in the flax layout, then
-    :data:`RUN_INPUTS` and ``extra0``), so either package's program takes
+    bundle names them (``state.<path>`` in the flax layout, then the
+    scene and schedule and ``extra0``), so either package's program takes
     the same ``inputs/`` directory."""
     from cmlpl_tpu_torch.core.rng import seed_key
     from cmlpl_tpu_torch.ops.patch_gather import poolify_batches
@@ -506,26 +571,31 @@ def build_run_exported(trainer, scene: PreparedScene, sampler, seed, *,
     if platform is not None and torch.device(platform).type != device.type:
         raise ValueError(f"a {platform} program needs a trainer on "
                          f"{platform}, not on {device}")
-    trainer._check_run_exportable()
+    pool_mode = cfg.gather_impl == "pool"
     state = trainer.init_state(seed)
     layout = StateLayout(trainer, state, seed_key(seed))
-    step = RunStep(trainer, state, layout)
+    step = RunStep(trainer, state, layout, cols=scene.cols)
 
     li, ly, ui = stack_schedule(sampler, cfg.num_epochs)
-    pool, li, ui = poolify_batches(li, ui)
+    scene_and_schedule = [scene.padded_pca.cpu().numpy(),
+                          scene.spectra.cpu().numpy()]
+    if pool_mode:
+        pool, li, ui = poolify_batches(li, ui)
+        scene_and_schedule.append(pool)
+    scene_and_schedule += [li, np.asarray(ly, np.int32), ui]
     extras = [np.asarray(e) for e in trainer._run_extras()]
     inputs = dict(zip(layout.names, layout.values))
-    inputs.update(zip(RUN_INPUTS, (scene.padded_pca.cpu().numpy(),
-                                   scene.spectra.cpu().numpy(), pool, li,
-                                   np.asarray(ly, np.int32), ui)))
+    inputs.update(zip(RUN_INPUTS if pool_mode else RUN_INPUTS_PER_STEP,
+                      scene_and_schedule))
     inputs.update({f"extra{i}": e for i, e in enumerate(extras)})
     with_thr = bool(extras)
     b = li.shape[1]
 
     args = tuple(torch.from_numpy(np.array(v)).to(device)
                  for v in inputs.values())
-    sources = dict(cast=trainer.cast, cols=scene.cols, w=cfg.patch_size,
-                   with_thr=with_thr)
+    sources = dict(cast=trainer.cast,
+                   prep_cube=None if pool_mode else trainer._prep_cube,
+                   cols=scene.cols, w=cfg.patch_size, with_thr=with_thr)
     with compute_precision("float32"):
         state_t, consts = _run_sources(layout, args, **sources)
         i0 = torch.zeros((), dtype=torch.int64, device=device)
@@ -550,8 +620,29 @@ def build_run_exported(trainer, scene: PreparedScene, sampler, seed, *,
         # layers are bf16 ops of the graph
         "compute_dtype": "float32",
         "model_dtype": cfg.compute_dtype,
+        # the operators the package calls by name: the runner loads
+        # their library first (native/aoti_host.cpp --op_library)
+        "custom_ops": _custom_ops(exported),
     }
     return meta, exported, inputs
+
+
+def _custom_ops(exported) -> list[str]:
+    """The ``cmlpl`` operators that ``exported``'s graph calls, its
+    loops' bodies included, by qualified name (``cmlpl::<name>``)."""
+    from cmlpl_tpu_torch.ops.patch_gather import OP_NAMESPACE
+
+    found = set()
+    for module in exported.graph_module.modules():
+        if not isinstance(module, torch.fx.GraphModule):
+            continue
+        for node in module.graph.nodes:
+            target = node.target
+            if (node.op == "call_function"
+                    and isinstance(target, torch._ops.OpOverload)
+                    and target.namespace == OP_NAMESPACE):
+                found.add(target._schema.name)
+    return sorted(found)
 
 
 def save_run_bundle(dir_path: str, meta: dict, exported, inputs) -> str:
@@ -562,7 +653,16 @@ def save_run_bundle(dir_path: str, meta: dict, exported, inputs) -> str:
 
         aoti_host --bundle DIR --inputs DIR/inputs --outdir OUT
 
+    A bundle that calls a kernel's operator (``meta["custom_ops"]``) is
+    for the card alone: the runner has no CPU kernel of it, and a plain
+    gather there would hide the mode, so a ``cpu`` one is refused.
+
     Returns the package's path."""
+    if meta.get("custom_ops") and meta["platforms"] != ["cuda"]:
+        raise ValueError(
+            f"gather_impl {meta['gather_impl']!r} runs "
+            f"{', '.join(meta['custom_ops'])}, a CUDA kernel: its bundle "
+            f"is for the cuda platform, not {meta['platforms']}")
     package = save_native_bundle(dir_path, meta, exported,
                                  in_names=meta["input_names"],
                                  out_names=meta["output_names"])

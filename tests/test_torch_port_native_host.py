@@ -228,6 +228,42 @@ def test_device_cuda_without_a_card_fails_with_a_message(host_bin, bundle):
                                str(bundle["tmp"] / "x.npy"))
 
 
+@pytest.mark.parametrize("library,message", [
+    (None, "calls cmlpl::gather_patches_f32: pass --op_library"),
+    ("missing.so", "cannot load --op_library"),
+    ("libc10.so", "registers no cmlpl::gather_patches_f32")],
+    ids=["no_library", "missing_library", "library_without_the_op"])
+def test_bundle_with_custom_ops_needs_their_library(host_bin, bundle,
+                                                    tmp_path, library,
+                                                    message):
+    """A bundle whose meta names custom operators (a kernel gather's run
+    program) runs only once the library that registers them is loaded:
+    without it, or with one that registers another, the runner fails
+    before it loads the package, naming what is missing."""
+    import shutil
+
+    import torch
+
+    copy = tmp_path / "b"
+    shutil.copytree(bundle["dir"], copy)
+    meta = dict(bundle["meta"], custom_ops=["cmlpl::gather_patches_f32"])
+    (copy / "meta.json").write_text(json.dumps(meta, indent=1))
+    argv = [host_bin, "--bundle", str(copy), "--cube", bundle["cube"],
+            "--spectra", bundle["spectra"], "--out", str(tmp_path / "x.npy"),
+            "--device", "cpu"]
+    if library == "libc10.so":
+        library = os.path.join(os.path.dirname(torch.__file__), "lib",
+                               library)
+    elif library is not None:
+        library = str(tmp_path / library)
+    if library is not None:
+        argv += ["--op_library", library]
+    proc = subprocess.run(argv, capture_output=True, text=True)
+    assert proc.returncode == 1
+    assert message in proc.stderr
+    assert not (tmp_path / "x.npy").exists()
+
+
 def test_launcher_main_prints_the_result(bundle, capsys):
     out = str(bundle["tmp"] / "main.npy")
     result = aoti_launcher.main(["--bundle", bundle["dir"], "--cube",
