@@ -76,7 +76,24 @@ its mode (the second process); the bundle run by the runner with the
 operators' library, its ``ms_per_step`` beside the pool bundle's and the
 eager per-step epoch's, imported and mapped.  The export phase holds the
 runner's bf16 map, compiled with precision-cast emulation, to the
-in-process bf16 map.  Every
+in-process bf16 map.  Then
+multi-card data parallel (slice 12, ``core/mesh.py``): two gloo ranks on
+the one card, processes of their own started beside the A/B phases and
+driven through the library (``multihost_shared_card``): gloo's
+collectives on CUDA tensors, one noise-off step of CMLPL, CPS and CCT
+against the one-rank step, the two replicas bitwise equal after 3
+noise-on steps, a bf16 step whose pool kernel 2 gathers, CMLPL steps
+whose "auto" pool is over the budget (kernel 1 twice a step on each
+rank), a 2-epoch CMLPL
+run (one pool a rank) whose net B map, one strip of 203 tiles a rank
+(kernel 1, counted by the wrapper and by the profiler), is bitwise the
+one-rank map, and a step's gradient all-reduce; at the end
+``cli.train --multihost`` as a one-rank NCCL world, 2 epochs of the
+default cell beside the same run with no process group
+(``multihost_world1``: OA within 1.0 point, one pool and 406 launches
+for each map,
+``ms_per_step`` of both, one step's gradients against the step with no
+group, the all-reduce and the draws every rank repeats).  Every
 phase prints one JSON line, with ``at_s``, its process's seconds since it
 started; the card's name and power limit, then a ``kernels`` line
 (launches on the main path, error, times, bounds, launch plans and B = 1
@@ -91,11 +108,13 @@ import concurrent.futures
 import contextlib
 import csv
 import ctypes
+import hashlib
 import io
 import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -119,6 +138,9 @@ FLOOR_SITE = (13, 5)                        # (w, C) of the B = 1 floor
 FLOOR_LAUNCHES = 100
 TIMING_ROUNDS = 3                           # passes over a map's tiles
 TRAIN_EPOCHS = 20                           # the default schedule
+#: a num_unlabel whose pool (30,208 rows of 96 kB, 2.9 GB) is over the
+#: 2 GiB budget of gather "auto", which then takes kernel 1 each step
+OVER_BUDGET_UNLABEL = 30_000
 # card vs CPU, 3 training steps: cuDNN and oneDNN sum the convolutions in
 # other orders, so the losses agree to about 1e-6 of their size, and the
 # first step's gradients (same params, same inputs) to a small part of each
@@ -1048,6 +1070,14 @@ def train_cli_run(main_fn, tmp, name: str, counter_fn, maps, extra=(),
         "--weights_out", os.path.join(tmp, f"{name}.npz")], counter_fn)
     total = counter_fn()
     train_s, train_launches = line_value(lines, counts, "training time")
+    # each map's launches: the counts at its timing line less those at the
+    # line before it (training's, then the previous map's)
+    per_map, before = {}, train_launches
+    for m in maps:
+        _, at = line_value(lines, counts, f"full-scene inference time ({m})")
+        per_map[m] = {"gather_patches_f32": at[0] - before[0],
+                      "gather_patches_bf16": at[1] - before[1]}
+        before = at
     steps = epochs * 78
     require(f"({steps} steps)" in next(ln for ln in lines
                                        if ln.startswith("training time")),
@@ -1069,6 +1099,7 @@ def train_cli_run(main_fn, tmp, name: str, counter_fn, maps, extra=(),
                               "gather_patches_bf16": train_launches[1]},
         "launches_with_maps": {"gather_patches_f32": total[0],
                                "gather_patches_bf16": total[1]},
+        "launches_per_map": per_map,
         "cls_loss_by_epoch": cls.tolist(),
         "last_epoch_mean": {k: float(v[-78:].mean()) for k, v in hist.items()
                             if k != "step"}}
@@ -3137,16 +3168,17 @@ print(json.dumps({"child": getattr(cs, sys.argv[2])(*sys.argv[3:])}),
 """
 
 
-def start_child(tmp, fn: str, *args, nice: int = 10):
+def start_child(tmp, fn: str, *args, nice: int = 10, env=None):
     """``chip_smoke.<fn>(*args)`` (string arguments) started in a new
     process, by default at a lower priority and with 4 compile workers, so
     its exports and AOTInductor compiles (minutes) run beside the phases
     of this one and leave them most of the host; its output goes to files
-    in ``tmp``.  Returns (the process, ``tmp``, ``fn``)."""
+    in ``tmp``; ``env`` adds to its environment.  Returns (the process,
+    ``tmp``, ``fn``)."""
     os.makedirs(tmp, exist_ok=True)
     out = open(os.path.join(tmp, "child.out"), "w")
     err = open(os.path.join(tmp, "child.err"), "w")
-    env = dict(os.environ)
+    env = dict(os.environ, **(env or {}))
     if nice:
         env["TORCHINDUCTOR_COMPILE_THREADS"] = "4"
     proc = subprocess.Popen(["nice", "-n", str(nice), sys.executable, "-c",
@@ -3441,6 +3473,381 @@ def phase_train_bundle_per_step(child: dict, tmp, pool_bundle: dict,
     require(cls[-1] < cls[0], f"per-step bundle cls_loss by epoch {cls}")
     require(acc.oa > 0.5, f"the per-step bundle's OA {acc.oa}")
     return {"predict": launches[0]}
+
+
+# -- multi-card data parallel (slice 12) ----------------------------------- #
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mh_trainer(algo: str, mesh=None, **cfg):
+    from cmlpl_tpu_torch.train import CCTTrainer, CMLPLTrainer, CPSTrainer
+    from cmlpl_tpu_torch.train.state import CMLPLConfig
+
+    cls = {"cmlpl": CMLPLTrainer, "cps": CPSTrainer, "cct": CCTTrainer}[algo]
+    return cls(CMLPLConfig(**cfg), device=torch.device("cuda"), mesh=mesh)
+
+
+def mh_step(trainer, tscene, batch):
+    """One step of ``trainer`` from ``init_state(SEED)`` on ``batch`` (the
+    default schedule's first): (its metrics, its step-1 gradients, on the
+    host; over a mesh the summed gradient)."""
+    state = trainer.init_state(SEED)
+    li, ly, ui = batch
+    state, m = trainer.train_step(state, tscene, li, ly, ui, epoch=1)
+    return ({k: float(v) for k, v in m.items()},
+            [p.grad.detach().cpu().clone()
+             for p in trainer.named_params(state).values()])
+
+
+def hold_step(what: str, got, want, bf16: bool = False) -> dict:
+    """Two steps from one state and one batch, held at the card's f32
+    bounds (losses at CARD_CPU_LOSS_*, step-1 gradients within
+    CARD_CPU_GRAD_TOL of each tensor's largest), or, in bf16, the losses
+    at BF16_LOSS_* but the argmax decisions (BF16_DECISIONS)."""
+    (mg, gg), (mw, gw) = got, want
+    for k in mw:
+        if bf16 and k in BF16_DECISIONS:
+            continue
+        rtol, atol = ((BF16_LOSS_RTOL, BF16_LOSS_ATOL) if bf16 else
+                      (CARD_CPU_LOSS_RTOL, CARD_CPU_LOSS_ATOL))
+        require(np.isfinite(mg[k]) and np.isclose(mg[k], mw[k], rtol=rtol,
+                                                  atol=atol),
+                f"{what}: {k} {mg[k]} vs {mw[k]}")
+    gap = grad_gap(gg, gw)
+    if not bf16:
+        require(gap <= CARD_CPU_GRAD_TOL,
+                f"{what}: step-1 gradients {gap} of a tensor's largest apart")
+    return {"max_abs_diff": {k: abs(mg[k] - mw[k]) for k in mw},
+            "step1_grad_max_diff_of_tensor_max": gap}
+
+
+def state_digest(trainer, state) -> str:
+    """sha256 of every tensor of a trainer state (params, Adam moments and
+    steps, queues, bank, the generator's state and its next draw) and its
+    step: equal digests are bitwise equal replicas."""
+    h = hashlib.sha256()
+    named = trainer.named_params(state)
+    tensors = [p.detach() for p in named.values()]
+    for opt in trainer._opts(state):
+        for p in named.values():
+            st = opt.state.get(p, {})
+            tensors += [st[k] for k in sorted(st)]
+    for name, c in sorted(trainer._carry(state).items()):
+        fields = c.__dict__ if hasattr(c, "__dict__") else c._asdict()
+        tensors += [torch.as_tensor(v) for _, v in sorted(fields.items())]
+    tensors += [state.generator.get_state(),
+                torch.rand(8, generator=state.generator,
+                           device=state.generator.device)]
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    h.update(str(state.step).encode())
+    return h.hexdigest()
+
+
+def timed_all_reduce_ms(numel: int, device, rounds: int = 20) -> float:
+    """Host ms of one ``all_reduce`` of ``numel`` f32 on the default group
+    (a step's flat gradient buffer), synchronised, after a warm-up."""
+    import torch.distributed as dist
+
+    buf = torch.ones(numel, device=device)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / rounds * 1e3
+
+
+def run_shared_card_rank() -> dict:
+    """One of two gloo ranks on ``cuda:0`` (torchrun's environment set by
+    :func:`phase_multihost_shared_card`), through the library: gloo's
+    collectives on CUDA tensors; a noise-off step of CMLPL, CPS and CCT
+    (rank 0 also takes the one-rank step), 3 noise-on steps' state digest;
+    a bf16 CMLPL step (kernel 2's pool); CMLPL steps with an "auto" pool
+    over the budget (kernel 1 twice a step); a 2-epoch CMLPL run (one pool),
+    its net B's map (one strip of 203 tiles a rank, counted by the wrapper
+    and by the profiler; rank 0 also maps the whole scene on one rank), a
+    one-step call's pool under the profiler, and a step's all-reduce."""
+    import torch.distributed as dist
+
+    from cmlpl_tpu_torch.cli._common import logits_fn
+    from cmlpl_tpu_torch.core.mesh import create_mesh, initialize_multihost
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.eval.inference import ScenePredictor
+    from cmlpl_tpu_torch.eval.metrics import cal_accuracy
+    from cmlpl_tpu_torch.ops.patch_gather import (WRAPPERS,
+                                                  gather_patches_bf16,
+                                                  gather_patches_f32)
+
+    device = torch.device("cuda:0")
+    require(initialize_multihost(backend="gloo", device=device) == 2,
+            "not a world of two")
+    mesh = create_mesh(device)
+    require((mesh.size, mesh.backend) == (2, "gloo"), f"mesh {mesh}")
+    out = {"rank": mesh.rank}
+    # gloo on CUDA tensors: the two collectives the mesh uses
+    t = torch.full((4,), mesh.rank + 1.0, device=device)
+    dist.all_reduce(t)
+    b = torch.full((16,), mesh.rank, dtype=torch.uint8, device=device)
+    dist.broadcast(b, src=1)
+    out["gloo_cuda"] = {"all_reduce_f32": t.tolist()[0],
+                        "broadcast_uint8": int(b[0])}
+    cube, gt = synthetic_scene(DATA_ID)
+    tscene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                           n_pc=N_PC, device=device)
+    li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
+    first = (li[0], ly[0], ui[0])
+    off = dict(noise=0.0, dropout=0.0, gather_impl="pool")
+    out["steps"], out["digests"] = {}, {}
+    for algo in ("cmlpl", "cps", "cct"):
+        two = mh_step(mh_trainer(algo, mesh, **off), tscene, first)
+        if mesh.rank == 0:
+            out["steps"][algo] = hold_step(
+                f"{algo}: two ranks vs one rank on the card", two,
+                mh_step(mh_trainer(algo, **off), tscene, first))
+        trainer = mh_trainer(algo, mesh)
+        state = trainer.init_state(SEED)
+        state, _ = trainer.train_epoch(state, tscene, li[:3], ly[:3],
+                                       ui[:3], 1)
+        out["digests"][algo] = state_digest(trainer, state)
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    bf16 = dict(off, compute_dtype="bfloat16")
+    two = mh_step(mh_trainer("cmlpl", mesh, **bf16), tscene, first)
+    out["bf16_launches"] = [w.launches for w in WRAPPERS]
+    if mesh.rank == 0:
+        out["bf16_step"] = hold_step(
+            "bf16 cmlpl: two ranks vs one rank on the card", two,
+            mh_step(mh_trainer("cmlpl", **bf16), tscene, first), bf16=True)
+    # an "auto" whose pool is over the budget: kernel 1 each step on each
+    # rank, which gathers its whole batch (labeled, unlabeled: 2 a step)
+    over = dict(off, gather_impl="auto", num_unlabel=OVER_BUDGET_UNLABEL)
+    trainer = mh_trainer("cmlpl", mesh, **over)
+    out["over_budget_impl"] = trainer.config.gather_impl
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    two = mh_step(trainer, tscene, first)
+    out["over_budget_step_launches"] = [w.launches for w in WRAPPERS]
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    trainer.train_epoch(trainer.init_state(SEED), tscene, li[:3], ly[:3],
+                        ui[:3], 1)
+    out["over_budget_3_step_launches"] = [w.launches for w in WRAPPERS]
+    if mesh.rank == 0:
+        out["over_budget_step"] = hold_step(
+            "over-budget auto cmlpl: two ranks vs one rank on the card",
+            two, mh_step(mh_trainer("cmlpl", **over), tscene, first))
+
+    # the 2-epoch run, through the library
+    trainer = mh_trainer("cmlpl", mesh, num_epochs=2)
+    state = trainer.init_state(SEED)
+    sampler = SemiSupervisedSampler(generate_splits(tscene.labels,
+                                                    num_label=5),
+                                    tscene.labels, 128, 128, 10000,
+                                    seed=1088)
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, history = trainer.fit(state, tscene, sampler, log_every=0)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["steps_run"] = len(history)
+    out["train_launches"] = [w.launches for w in WRAPPERS]
+    out["run_digest"] = state_digest(trainer, state)
+    model = state.net_b.model.eval()
+    predictor = ScenePredictor(logits_fn(model), patch_size=W,
+                               cols=tscene.cols, tile=TILE, gather="pallas",
+                               mesh=mesh)
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    labels = predictor(tscene)
+    out["map_launches"] = [w.launches for w in WRAPPERS]
+    _, counts, _ = profiled(predictor, [(tscene,)])
+    out["map_kernel_launches_profiler"] = sum(
+        n for k, n in counts.items() if KERNEL_NEEDLE in k)
+    splits = generate_splits(tscene.labels, num_label=5)
+    out["oa_net_b"] = cal_accuracy(labels[splits.test],
+                                   tscene.labels[splits.test] - 1).oa
+    out["labels_digest"] = hashlib.sha256(labels.tobytes()).hexdigest()
+    if mesh.rank == 0:
+        one = ScenePredictor(logits_fn(model), patch_size=W,
+                             cols=tscene.cols, tile=TILE,
+                             gather="pallas")(tscene)
+        out["map_equals_one_rank_map"] = bool(np.array_equal(labels, one))
+    # a one-step call's pool under the profiler: one kernel-1 launch
+    pool_trainer = mh_trainer("cmlpl", mesh)
+    pool_state = pool_trainer.init_state(SEED)
+    _, counts, _ = profiled(lambda: pool_trainer.train_step(
+        pool_state, tscene, *first, epoch=1), [()])
+    out["pool_kernel_launches_profiler"] = sum(
+        n for k, n in counts.items() if KERNEL_NEEDLE in k)
+    # a step's gradient all-reduce over gloo (through the host)
+    numel = sum(p.numel() for p in trainer.named_params(state).values())
+    out["all_reduce"] = {"bytes": numel * 4,
+                         "ms": timed_all_reduce_ms(numel, device)}
+    dist.destroy_process_group()
+    return out
+
+
+def start_shared_card(tmp):
+    """The two ranks of :func:`run_shared_card_rank`, started now."""
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
+    return [start_child(os.path.join(tmp, f"rank{r}"),
+                        "run_shared_card_rank", env=dict(env, RANK=str(r)))
+            for r in range(2)]
+
+
+def phase_multihost_shared_card(children) -> dict:
+    """Two gloo ranks on one card (``multihost_shared_card``): every hold
+    of :func:`run_shared_card_rank`; returns the launches a rank."""
+    ranks = [finish_child(c) for c in children]
+    r0, r1 = ranks
+    for r in ranks:
+        require(r["gloo_cuda"] == {"all_reduce_f32": 3.0,
+                                   "broadcast_uint8": 1},
+                f"gloo on CUDA tensors: {r['gloo_cuda']}")
+        require(r["train_launches"] == [1, 0],
+                f"rank {r['rank']}: 2-epoch run launches "
+                f"{r['train_launches']}")
+        require(r["map_launches"] == [203, 0]
+                and r["map_kernel_launches_profiler"] == 203,
+                f"rank {r['rank']}: map launches {r['map_launches']}, "
+                f"profiler {r['map_kernel_launches_profiler']}")
+        require(r["pool_kernel_launches_profiler"] == 1,
+                f"rank {r['rank']}: pool launches (profiler) "
+                f"{r['pool_kernel_launches_profiler']}")
+        require(r["bf16_launches"] == [0, 1],
+                f"rank {r['rank']}: bf16 step launches {r['bf16_launches']}")
+        require(r["over_budget_impl"] == "pallas"
+                and r["over_budget_step_launches"] == [2, 0]
+                and r["over_budget_3_step_launches"] == [6, 0],
+                f"rank {r['rank']}: over-budget auto "
+                f"{r['over_budget_impl']}, launches a step "
+                f"{r['over_budget_step_launches']}, over 3 steps "
+                f"{r['over_budget_3_step_launches']}")
+        require(r["steps_run"] == 156, f"steps {r['steps_run']}")
+    for key in ("digests", "run_digest", "labels_digest", "oa_net_b"):
+        require(r0[key] == r1[key], f"the ranks differ in {key}: "
+                f"{r0[key]} vs {r1[key]}")
+    require(r0["map_equals_one_rank_map"],
+            "the two-rank map is not bitwise the one-rank map")
+    require(r0["oa_net_b"] > 0.5, f"OA net B {r0['oa_net_b']}")
+    emit({"phase": "multihost_shared_card", "ranks": 2, "backend": "gloo",
+          "device": "cuda:0 (both ranks)",
+          "gloo_cuda_tensors": r0["gloo_cuda"],
+          "one_step_vs_one_rank": r0["steps"],
+          "bf16_step_vs_one_rank": r0["bf16_step"],
+          "over_budget_auto": {
+              "num_unlabel": OVER_BUDGET_UNLABEL,
+              "gather_impl": [r["over_budget_impl"] for r in ranks],
+              "launches_one_step": [r["over_budget_step_launches"]
+                                    for r in ranks],
+              "launches_3_steps": [r["over_budget_3_step_launches"]
+                                   for r in ranks],
+              "step_vs_one_rank": r0["over_budget_step"]},
+          "replicas_bitwise_equal_after_3_steps": True,
+          "epochs": 2, "train_s": [r["train_s"] for r in ranks],
+          "ms_per_step": [r["train_s"] / 156 * 1e3 for r in ranks],
+          "ms_per_step_note": "two ranks share one card: not a speed "
+                              "figure",
+          "all_reduce_per_step": [r["all_reduce"] for r in ranks],
+          "launches_per_rank": [{"pool": r["train_launches"][0],
+                                 "map": r["map_launches"][0],
+                                 "bf16_pool": r["bf16_launches"][1]}
+                                for r in ranks],
+          "map_equals_one_rank_map": True, "oa_net_b": r0["oa_net_b"]})
+    return {"train": r0["train_launches"][0], "map": r0["map_launches"][0],
+            "bf16": r0["bf16_launches"][1],
+            "over_budget": r0["over_budget_3_step_launches"][0]}
+
+
+def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
+    """``cli.train --multihost`` as a one-rank NCCL world (torchrun's
+    environment), 2 epochs of the default f32 cell, beside the same run
+    with no process group: the OA within 1.0 point, one pool launch and
+    406 map launches, ``ms_per_step`` of each; one step over the world
+    against the step without it (step-1 gradients); a step's all-reduce
+    and the draws every rank duplicates.  The group is destroyed after."""
+    import torch.distributed as dist
+
+    from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.core.mesh import create_mesh
+
+    maps = ("net B", "net E")
+    (b0, e0), plain = train_cli_run(cli_train.main, os.path.join(tmp, "p"),
+                                    "plain", counter_fn, maps, epochs=2)
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    try:
+        (b1, e1), world = train_cli_run(
+            cli_train.main, os.path.join(tmp, "w"), "world1", counter_fn,
+            maps, extra=["--multihost"], epochs=2)
+        require(dist.is_initialized() and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1,
+                "cli.train --multihost did not start a one-rank NCCL world")
+        mesh = create_mesh()
+        li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
+        first = (li[0], ly[0], ui[0])
+        off = dict(noise=0.0, dropout=0.0, gather_impl="pool")
+        step = hold_step("world of one vs no group", mh_step(
+            mh_trainer("cmlpl", mesh, **off), tscene, first),
+            mh_step(mh_trainer("cmlpl", **off), tscene, first))
+        trainer = mh_trainer("cmlpl", mesh)
+        state = trainer.init_state(SEED)
+        numel = sum(p.numel() for p in trainer.named_params(state).values())
+        all_reduce = {"bytes": numel * 4,
+                      "ms": timed_all_reduce_ms(numel, mesh.device)}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+    # the draws of a step over the whole batch, which every rank makes
+    g = torch.Generator(tscene.device).manual_seed(SEED)
+    xp = torch.randn(128, W, W, N_PC, device=tscene.device)
+    x = torch.randn(128, tscene.spectra.shape[1], device=tscene.device)
+    y = torch.zeros(128, dtype=torch.int64, device=tscene.device)
+    draws_ms = cuda_ms(lambda: trainer._draws(g, xp, x, xp, x, y), [()] * 20)
+    for rep in (plain, world):
+        require(rep["launches_training"] == {"gather_patches_f32": 1,
+                                             "gather_patches_bf16": 0},
+                f"training launches {rep['launches_training']}")
+        require(rep["launches_with_maps"] == {
+            "gather_patches_f32": 1 + 2 * 406, "gather_patches_bf16": 0},
+            f"launches with the maps {rep['launches_with_maps']}")
+        require(all(n == {"gather_patches_f32": 406,
+                          "gather_patches_bf16": 0}
+                    for n in rep["launches_per_map"].values()),
+                f"launches a map {rep['launches_per_map']}")
+    for got, want, net in ((b1, b0, "B"), (e1, e0, "E")):
+        require(abs(got.oa - want.oa) * 100 <= 1.0,
+                f"net {net}: OA {got.oa} over a world of one, {want.oa} "
+                "without")
+    emit({"phase": "multihost_world1", "backend": "nccl", "world": 1,
+          "epochs": 2, "ms_per_step": world["ms_per_step"],
+          "ms_per_step_no_group": plain["ms_per_step"],
+          "train_s": world["train_s"], "train_s_no_group": plain["train_s"],
+          "map_s": world["map_s"], "map_s_no_group": plain["map_s"],
+          "oa": {"net_b": b1.oa, "net_e": e1.oa},
+          "oa_no_group": {"net_b": b0.oa, "net_e": e0.oa},
+          "one_step_vs_no_group": step, "all_reduce_per_step": all_reduce,
+          "duplicated_draws_ms_per_step": draws_ms,
+          "launches_training": world["launches_training"],
+          "launches_per_map": world["launches_per_map"],
+          "launches_per_map_no_group": plain["launches_per_map"]})
+    return {"train": world["launches_training"]["gather_patches_f32"],
+            "map": world["launches_per_map"]["net B"]["gather_patches_f32"]}
 
 
 def watch_host_memory(low: list, stop: threading.Event) -> None:
@@ -3765,11 +4172,16 @@ def main() -> int:
         # fused multi-seed runs, in a process of their own
         slice7 = slice7_in_child(os.path.join(tmp, "slice7"))
         prep, fused = slice7["prep"], slice7["fused"]
+        # slice 12: two gloo ranks sharing the card, in processes of their
+        # own beside the A/B phases, which time nothing they report
+        shared = start_shared_card(os.path.join(child_tmp, "shared_card"))
+        children.extend(shared)
         ab, scene_npz = ab_inputs(tmp)
         for algo in ("cmlpl", "cps", "cct"):
             phase_ab(ab, scene_npz, algo)
         phase_ab(ab, scene_npz, "cmlpl", ["--compute_dtype", "bfloat16"],
                  "bf16_ab")
+        shared_card = phase_multihost_shared_card(shared)
     require(tf32_flags() == flags_at_start,
             f"TF32 left at {tf32_flags()}, found at {flags_at_start}")
 
@@ -3812,6 +4224,10 @@ def main() -> int:
             per_step_child, tmp, bundle_launches, per_step,
             child["per_step"], counter_fn)
     stop_children()
+    # 10. multi-card data parallel (slice 12): cli.train --multihost as a
+    # one-rank NCCL world beside the run with no process group
+    with tempfile.TemporaryDirectory() as tmp:
+        world1 = phase_multihost_world1(tmp, tscene, counter_fn)
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"]
                 + export["launches"],
@@ -3847,7 +4263,17 @@ def main() -> int:
             "epochs: the compiled package in Python, kernel 1 on the card "
             "(profiler)": per_step_child["kernel_device_launches"],
             "cli.predict --checkpoint_dir of the imported per-step "
-            "training-bundle run, one map": per_step_launches["predict"]},
+            "training-bundle run, one map": per_step_launches["predict"],
+            "cli.train --multihost, a one-rank NCCL world, 2 epochs (pool), "
+            "training": world1["train"],
+            "cli.train --multihost, a one-rank NCCL world, one map":
+            world1["map"],
+            "two gloo ranks on one card, CMLPL 2 epochs (pool), training, "
+            "each rank": shared_card["train"],
+            "two gloo ranks on one card, net B's map, each rank's strip":
+            shared_card["map"],
+            "two gloo ranks on one card, CMLPL 3 steps, auto over the pool "
+            "budget (kernel 1 a step), each rank": shared_card["over_budget"]},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
             per_step["pallas_bf16"]["launches_training"][1],
@@ -3859,7 +4285,9 @@ def main() -> int:
             bf16_launches["cct"],
             "cli.train --num_iters 4 --fused_iters --compute_dtype bfloat16, "
             "1 epoch (one pool for the 4 seeds), training":
-            fused["fused_bf16"]}}
+            fused["fused_bf16"],
+            "two gloo ranks on one card, one bf16 CMLPL step (pool), each "
+            "rank": shared_card["bf16"]}}
     for name, n in zoo_launches.items():
         flags = " ".join(ZOO_EXTRA.get(name, []))
         launches_train["patch_gather_f32"][

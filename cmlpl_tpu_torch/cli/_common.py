@@ -12,6 +12,13 @@ train, train_cps and train_cct read :func:`train_parser`: its
 ``--max_restarts`` restart from (:mod:`cmlpl_tpu_torch.utils.checkpoint`,
 the JAX package's directory contract in a format of the port's own), and
 that predict and serve map with.
+
+``--multihost`` (train, train_cps, train_cct, export_model) joins the
+``torchrun`` world before anything else (:func:`setup_runtime`, a no-op
+for one process): one process a card, the trainers data parallel over
+the ranks and the map split into one strip of tiles a rank
+(``core/mesh.py``).  Rank 0 writes the files (``core/mesh.is_primary``);
+every rank prints its results.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ import traceback
 import numpy as np
 import torch
 
+from cmlpl_tpu_torch.core.mesh import (barrier, broadcast_object,
+                                       initialize_multihost, is_primary,
+                                       place_state)
 from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.data.splits import generate_splits, load_splits
@@ -63,8 +73,10 @@ def _shared_parser() -> argparse.ArgumentParser:
                         "bf16-quantised); xla = the plain PyTorch gather; "
                         "dense = one dilated-conv pass over the whole "
                         "scene, no gather (BaseNet2/CCT, w % 4 == 0)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; the CPU only when asked for")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the CUDA card, "
+                        "cuda:LOCAL_RANK under torchrun); the CPU only when "
+                        "asked for")
     return p
 
 
@@ -218,7 +230,21 @@ def train_parser() -> argparse.ArgumentParser:
     # epoch hook right after epoch N's checkpoint is written
     p.add_argument("--fail_at_epoch", type=int, default=0,
                    help=argparse.SUPPRESS)
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun world (MASTER_ADDR, MASTER_PORT, "
+                        "RANK, WORLD_SIZE, LOCAL_RANK; NCCL between cards, "
+                        "gloo with --device cpu) and train data parallel, "
+                        "one process a card; a no-op for one process")
     return p
+
+
+def setup_runtime(args) -> None:
+    """Process-level set-up before any device work: with --multihost,
+    joins the torchrun world (``core/mesh.initialize_multihost``, a no-op
+    for one process) on ``--device``'s backend."""
+    if getattr(args, "multihost", False):
+        n = initialize_multihost(device=args.device)
+        print(f"multihost: {n} process(es)")
 
 
 def build_config(args, spec) -> CMLPLConfig:
@@ -295,7 +321,7 @@ def save_history(args, history) -> None:
     """--metrics_csv: the per-step metric dicts of ``fit``, one row per
     step with the step number first (the reference only prints running
     means, train.py:274-289)."""
-    if not args.metrics_csv or not history:
+    if not args.metrics_csv or not history or not is_primary():
         return
     keys = list(history[0])
     with open(args.metrics_csv, "w", newline="") as f:
@@ -349,7 +375,7 @@ def make_epoch_hook(args, trainer):
 
     def hook(epoch, state):
         if every and (epoch + 1) % every == 0:
-            save_checkpoint(args.checkpoint_dir, trainer, state)
+            save_state(args, trainer, state)
         if fail_at and epoch + 1 == fail_at:
             raise RuntimeError(
                 f"fault injection: failing after epoch {epoch + 1}")
@@ -390,22 +416,41 @@ def maybe_resume(args, trainer, state, batches_per_epoch: int):
     place of ``state``, and the epoch to start from, ``step //
     batches_per_epoch``; returns (state, start_epoch).  The run then draws
     its batches afresh from the sampler's first epoch, as the JAX
-    package's does."""
+    package's does.  Over a trainer's mesh rank 0 alone reads the
+    directory (the others may not see it) and every rank takes what it
+    found, a state or none (``core/mesh.place_state``)."""
     if not (args.resume and args.checkpoint_dir):
         return state, 0
-    try:
-        state = restore_checkpoint(args.checkpoint_dir, trainer)
-    except FileNotFoundError:
+    mesh = getattr(trainer, "mesh", None)
+    restored = None
+    if is_primary(mesh):
+        try:
+            restored = restore_checkpoint(args.checkpoint_dir, trainer)
+        except FileNotFoundError:
+            pass
+    if not broadcast_object(restored is not None, mesh):
         print("no checkpoint to resume from; starting fresh")
         return state, 0
+    state = place_state(mesh, trainer,
+                        state if restored is None else restored)
     start_epoch = state.step // batches_per_epoch
     print(f"resumed from step {state.step} (epoch {start_epoch})")
     return state, start_epoch
 
 
+def save_state(args, trainer, state) -> None:
+    """The trainer state under ``--checkpoint_dir``, written by rank 0 of
+    the trainer's mesh (the replicas are equal); every rank waits for
+    it."""
+    mesh = getattr(trainer, "mesh", None)
+    if is_primary(mesh):
+        save_checkpoint(args.checkpoint_dir, trainer, state)
+    barrier(mesh)
+
+
 def save_final_checkpoint(args, trainer, state) -> None:
     if args.checkpoint_dir:
-        save_checkpoint(args.checkpoint_dir, trainer, state)
+        save_state(args, trainer, state)
 
 
 def timed_fit(trainer, state, scene, sampler, log_every: int,
@@ -424,15 +469,18 @@ def timed_fit(trainer, state, scene, sampler, log_every: int,
 
 
 def scene_map(args, scene, model_fn, params, name: str,
-              spectra: bool = True) -> np.ndarray:
+              spectra: bool = True, mesh=None) -> np.ndarray:
     """The full-scene map of a trained model with ``--eval_gather``:
     ``model_fn(xp, x) -> logits`` for the tiled modes, its ``state_dict``
-    ``params`` for "dense"; ``spectra=False`` for a model of patches only.
-    Prints the "full-scene inference time (<name>) == <s>s" line."""
+    ``params`` for "dense"; ``spectra=False`` for a model of patches only;
+    over ``mesh``, one strip of tiles a rank and the whole map on every
+    rank.  Prints the "full-scene inference time (<name>) == <s>s"
+    line."""
     predictor = ScenePredictor(model_fn, params=params,
                                patch_size=scene.patch_size, cols=scene.cols,
                                tile=args.val_batch_size,
-                               gather=args.eval_gather, spectra=spectra)
+                               gather=args.eval_gather, spectra=spectra,
+                               mesh=mesh)
     t0 = time.perf_counter()
     pred = predictor(scene)
     print(f"full-scene inference time ({name}) == "

@@ -56,11 +56,10 @@ from __future__ import annotations
 import os
 import time
 
-import torch
-
 from cmlpl_tpu_torch.cli._common import (build_config, build_data,
                                          build_model, export_parser,
-                                         logits_fn, sync)
+                                         is_primary, logits_fn,
+                                         setup_runtime, sync)
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.inference import ScenePredictor
@@ -79,7 +78,7 @@ PLATFORMS = ("cuda", "cpu")
 def _platform(args) -> str:
     """The one export platform: ``--platform``, else ``--device``'s type."""
     if not args.platform:
-        return torch.device(args.device).type
+        return resolve_device(args.device).type
     if len(args.platform) > 1:
         raise SystemExit(
             f"--platform takes one platform, got {args.platform}: a "
@@ -131,7 +130,8 @@ def _import_run(args) -> str:
     spec = get_dataset(args.dataID)
     trainer = CMLPLTrainer(build_config(args, spec), device="cpu")
     state, metrics = load_run_outputs(bundle, outdir, trainer)
-    save_checkpoint(args.checkpoint_dir, trainer, state, generator=False)
+    if is_primary():
+        save_checkpoint(args.checkpoint_dir, trainer, state, generator=False)
     tail = {k: float(v.reshape(-1)[-1]) for k, v in metrics.items()}
     print(f"imported native run -> {args.checkpoint_dir} "
           f"(step {state.step}); final metrics: "
@@ -169,6 +169,7 @@ def main(argv=None):
                         "checkpoint at --checkpoint_dir, which predict and "
                         "serve read; pass the flags used at export")
     args = p.parse_args(argv)
+    setup_runtime(args)
     if args.import_run:
         return _import_run(args)
     if args.train_bundle:

@@ -70,6 +70,10 @@ def entry_shape(args, entry, spec) -> tuple[int, int]:
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.multihost:
+        raise SystemExit(
+            "cli.train_backbone --multihost is not ported yet (ROADMAP item "
+            "10b): its BatchNorms need statistics over the global batch")
     device = resolve_device(args.device)
     entry = ZOO[args.model]
     w, n_pc = entry_shape(args, entry, get_dataset(args.dataID))

@@ -7,14 +7,21 @@ is no silent CPU fallback when CUDA is missing.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
 
 def resolve_device(name=None) -> torch.device:
-    """``None`` or ``"cuda"`` -> the current CUDA device, raising if CUDA is
-    absent; ``"cpu"`` (or any explicit device) is taken as given."""
+    """``None`` or an index-less ``"cuda"`` -> the rank's card,
+    ``cuda:LOCAL_RANK``, inside a world of more than one process
+    (``torchrun``'s ``WORLD_SIZE``), else the current CUDA device;
+    ``"cpu"``, ``"cuda:<i>"`` or any other explicit device is taken as
+    given.  A CUDA device raises if CUDA is absent."""
     dev = torch.device("cuda" if name is None else name)
+    if (dev.type == "cuda" and dev.index is None
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' (--device cpu) to run "

@@ -10,8 +10,16 @@ final (K,) int32 copy to the host.
 Dense: the conv stack runs once over the whole padded cube, with no gather
 at all.  It needs the weights, not a callable: ``ScenePredictor`` takes
 them as ``params``, a BaseNet2 ``state_dict`` or a CCT model's (keys
-``encoder.*`` and ``dec_base.fc.*``).  The split of the dense map across
-cards waits for ROADMAP item 10.
+``encoder.*`` and ``dec_base.fc.*``).
+
+Over a mesh of ranks (``ScenePredictor(..., mesh=)``, the JAX package's
+``shard_map`` over the tile axis, ``:226-249,342-358``) the ids are padded
+to a multiple of ``tile`` times the ranks, rank r maps the r-th contiguous
+strip of tiles, launching its gather kernel for those tiles only, and the
+labels are gathered (int32) to every rank.  The tiles are the one-rank
+map's, so the labels are bitwise its labels.  The dense map runs whole on
+every rank (its split across ranks, GSPMD's halo exchange in the JAX
+package, waits for ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cmlpl_tpu_torch.core.mesh import (Mesh, gather_rows, is_distributed,
+                                       pad_to_multiple)
 from cmlpl_tpu_torch.data.patches import gather_patches, gather_spectra
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision
@@ -135,12 +145,14 @@ class ScenePredictor:
     :func:`resolve_gather`), or "dense" (:func:`dense_scene_logits` from
     ``params``, no gather and no ``model``).  ``spectra=False`` is for a
     model of patches only (a zoo "patch" model): its ``x`` is None and no
-    spectra are gathered.
+    spectra are gathered.  ``mesh``: each rank maps its strip of the tiles
+    and every rank returns the whole map (the module docstring).
     """
 
     def __init__(self, model: Callable | None, *, patch_size: int,
                  cols: int, tile: int = 4096, gather: str = "auto",
-                 params: Mapping | None = None, spectra: bool = True):
+                 params: Mapping | None = None, spectra: bool = True,
+                 mesh: Mesh | None = None):
         if gather not in GATHERS:
             raise ValueError(f"unknown gather {gather!r}; one of {GATHERS}")
         if gather == "dense" and params is None:
@@ -152,6 +164,7 @@ class ScenePredictor:
         self.tile = tile
         self.gather = gather
         self.spectra = spectra
+        self.mesh = mesh
 
     def _gather_fn(self, mode: str):
         w, cols = self.patch_size, self.cols
@@ -178,15 +191,19 @@ class ScenePredictor:
 
         k = scene.num_pixels
         tile = self.tile
-        padded_k = -(-k // tile) * tile
-        idx = np.arange(padded_k, dtype=np.int32)
-        idx[k:] = 0  # padding pixels classify pixel 0; discarded below
+        mesh = self.mesh if is_distributed(self.mesh) else None
+        ranks = 1 if mesh is None else mesh.size
+        padded_k = pad_to_multiple(k, tile * ranks)
+        lo, hi = (0, padded_k) if mesh is None else mesh.rows(padded_k)
+        idx = np.arange(lo, hi, dtype=np.int32)
+        idx[idx >= k] = 0  # padding pixels classify pixel 0; discarded below
         idx = torch.from_numpy(idx).to(device)
-        preds = torch.empty(padded_k, dtype=torch.int32, device=device)
-        for start in range(0, padded_k, tile):
+        preds = torch.empty(hi - lo, dtype=torch.int32, device=device)
+        for start in range(0, hi - lo, tile):
             ids = idx[start:start + tile]
             x = (gather_spectra(scene.spectra, ids) if self.spectra
                  else None)
             logits = self.model(gather(cube, ids), x)
             preds[start:start + tile] = torch.argmax(logits, dim=-1)
+        preds = gather_rows(preds, mesh, lo, padded_k)
         return preds[:k].cpu().numpy()

@@ -344,7 +344,8 @@ def resolve_train_gather(gather_impl: str, device: torch.device, *,
     """The trainer's gather on ``device``: :func:`resolve_gather_impl`,
     except that on the card an "auto" that resolves to the plain gather (a
     pool over the budget, or a trainer with no pool) takes kernel 1 each
-    step ("pallas", bitwise equal to "xla") instead.  The plain gather runs
+    step ("pallas", bitwise equal to "xla") instead, over any number of
+    ranks: each rank gathers its whole batch itself.  The plain gather runs
     on the card only when "xla" is asked for by name."""
     impl = resolve_gather_impl(gather_impl, num_unlabel=num_unlabel,
                                patch_size=patch_size, n_pc=n_pc,
@@ -353,6 +354,23 @@ def resolve_train_gather(gather_impl: str, device: torch.device, *,
     if gather_impl == "auto" and impl == "xla" and device.type == "cuda":
         return "pallas"
     return impl
+
+
+def check_gather_mesh(gather_impl: str, mesh) -> None:
+    """Refuses a per-step kernel gather asked for by name ("pallas",
+    "pallas_bf16") over a mesh of more than one rank, as the JAX package
+    refuses it (``cmlpl_tpu/ops/patch_gather.py:270-279``, where
+    ``pallas_call`` cannot be partitioned); the trainers check the
+    ``gather_impl`` they were given, before "auto" is resolved.  The
+    port's ranks gather their batches locally, so an over-budget "auto"
+    still takes kernel 1 each step on each rank's card
+    (:func:`resolve_train_gather`)."""
+    if gather_impl not in ("xla", "pool", "auto") and mesh is not None \
+            and mesh.size > 1:
+        raise ValueError(
+            f"gather_impl={gather_impl!r} requires a single-rank mesh (got "
+            f"{mesh.size} ranks); use gather_impl='auto', 'xla' or 'pool' "
+            "for multi-card training")
 
 
 def poolify_batches(lab_idx, unl_idx, bucket: int = POOL_BUCKET):

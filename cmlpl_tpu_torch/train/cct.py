@@ -92,15 +92,16 @@ class CCTTrainer(EpochDriver):
     def init_state(self, seed) -> CCTTrainState:
         """A fresh state from ``seed`` (as ``numpy.random.SeedSequence``
         takes): the CCT params with torch-default init bounds, and the
-        run's generator."""
+        run's generator; over a mesh, rank 0's on every rank
+        (:meth:`place`)."""
         cfg = self.config
         k_params, k_run = np.random.SeedSequence(seed).spawn(2)
-        return self.new_state(
+        return self.place(self.new_state(
             init_cct_params(k_params, n_pc=cfg.n_pc,
                             num_features=cfg.num_features,
                             num_classes=cfg.num_classes,
                             patch_size=cfg.patch_size),
-            int(k_run.generate_state(1)[0]))
+            int(k_run.generate_state(1)[0])))
 
     def state_to_jax(self, state: CCTTrainState) -> dict:
         return cct_state_to_jax(state)

@@ -84,9 +84,10 @@ def _when(cond, fn, other):
 
 class CMLPLTrainer(TwoNetDriver):
     """Builds the CMLPL state and runs its steps on ``device`` (the CUDA
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU), over the ranks of ``mesh``
+    when given (``train/driver.EpochDriver``)."""
 
-    def __init__(self, config: CMLPLConfig, device=None):
+    def __init__(self, config: CMLPLConfig, device=None, mesh=None):
         if config.extra_loss not in EXTRA_LOSSES:
             raise ValueError(f"unknown extra_loss {config.extra_loss!r}; "
                              f"one of {EXTRA_LOSSES}")
@@ -94,7 +95,7 @@ class CMLPLTrainer(TwoNetDriver):
         if unknown:
             raise ValueError(f"unknown augment {sorted(unknown)}; any of "
                              f"{AUGMENTS}")
-        super().__init__(config, device)
+        super().__init__(config, device, mesh)
 
     def new_state(self, params_b, params_e, run_seed: int
                   ) -> CMLPLTrainState:

@@ -68,12 +68,16 @@ import numpy as np
 import torch
 from torch.func import functional_call, vmap
 
+from cmlpl_tpu_torch.core.mesh import (Mesh, all_gather_rows,
+                                       all_reduce_grads, is_multiprocess,
+                                       place_state, shard_rows)
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision, resolve_device
 from cmlpl_tpu_torch.models.basenet import BaseNet2, joint_dim, keep_mask
 from cmlpl_tpu_torch.objectives.queue import QueueState
 from cmlpl_tpu_torch.ops.noise import make_noiser, two_net_views
-from cmlpl_tpu_torch.ops.patch_gather import (gather_pool,
+from cmlpl_tpu_torch.ops.patch_gather import (check_gather_mesh,
+                                              gather_pool,
                                               make_input_cast,
                                               make_train_gather,
                                               poolify_batches,
@@ -113,11 +117,20 @@ class Apply:
     with their own params, or, given ``params`` (full name -> tensor, as
     :meth:`EpochDriver.named_params` names them), through
     ``torch.func.functional_call`` with those, as a fused run does for one
-    seed inside its vmap."""
+    seed inside its vmap.
 
-    def __init__(self, modules: torch.nn.ModuleDict, params=None):
+    Given a ``mesh`` with a process group, a call is data parallel: every
+    argument is batch-leading (the views, the dropout masks, the
+    features), the rank runs the module on its rows of them
+    (``core/mesh.shard_rows``) and the outputs come back gathered into
+    global order (``core/mesh.all_gather_rows``), so the losses after the
+    call are the one-device losses on every rank."""
+
+    def __init__(self, modules: torch.nn.ModuleDict, params=None,
+                 mesh: Mesh | None = None):
         self.modules = modules
         self.params = params
+        self.mesh = mesh
 
     def _params(self, path: str) -> dict:
         prefix = path + "."
@@ -126,13 +139,22 @@ class Apply:
 
     def __call__(self, path: str, *args, **kwargs):
         module = self.modules.get_submodule(path)
+        mesh = self.mesh
+        args = [shard_rows(a, mesh) for a in args]
+        kwargs = {k: shard_rows(v, mesh) for k, v in kwargs.items()}
         if self.params is None:
-            return module(*args, **kwargs)
-        return functional_call(module, self._params(path), args, kwargs)
+            out = module(*args, **kwargs)
+        else:
+            out = functional_call(module, self._params(path), tuple(args),
+                                  kwargs)
+        if isinstance(out, tuple):
+            return tuple(all_gather_rows(o, mesh) for o in out)
+        return all_gather_rows(out, mesh)
 
     def stacked(self, paths, xps, xs, keeps=None):
         """The same-architecture modules at ``paths`` as ONE batched
-        forward over their stacked params (:func:`stacked_forward`)."""
+        forward over their stacked params (:func:`stacked_forward`); one
+        rank only (the trainers refuse ``stack_nets`` over ranks)."""
         mods = [self.modules.get_submodule(p) for p in paths]
         params = ([dict(m.named_parameters()) for m in mods]
                   if self.params is None else
@@ -174,11 +196,35 @@ class SeedStack:
 
 class EpochDriver:
     """Base of the trainers: resolves the device and the training gather,
-    runs the steps of a call and the epochs of a run."""
+    runs the steps of a call and the epochs of a run.
 
-    def __init__(self, config: CMLPLConfig, device=None):
+    ``mesh`` (``core/mesh.create_mesh``): data parallel over its ranks, the
+    JAX package's data mesh (``cmlpl_tpu/train/cmlpl.py:16-19,81-88``).
+    Every rank gathers the whole pool and batch and draws the whole
+    batch's randoms from its copy of the one generator; the forwards run
+    on the rank's rows (:class:`Apply`); the gradients are summed over the
+    ranks before the Adams step (:meth:`_update`).  The batches must
+    divide over the ranks, and "pallas" and "pallas_bf16" asked for by
+    name are refused over more than one rank, as in the JAX package; an
+    "auto" whose pool is over the budget still takes kernel 1 each step on
+    every rank's card.  ``device`` defaults to the mesh's."""
+
+    def __init__(self, config: CMLPLConfig, device=None,
+                 mesh: Mesh | None = None):
         self.cast = make_input_cast(config.compute_dtype, config.input_dtype)
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
+        self.mesh = mesh
+        world = mesh.size if mesh is not None else 1
+        if config.labeled_batch % world or config.unlabeled_batch % world:
+            raise ValueError(
+                f"labeled/unlabeled batch sizes ({config.labeled_batch}/"
+                f"{config.unlabeled_batch}) must be divisible by the mesh "
+                f"data-axis size {world}")
+        if config.stack_nets and world > 1:
+            raise ValueError("stack_nets runs one rank: its stacked forward "
+                             "is not sharded over ranks")
+        check_gather_mesh(config.gather_impl, mesh)
         config = dataclasses.replace(config, gather_impl=resolve_train_gather(
             config.gather_impl, self.device, num_unlabel=config.num_unlabel,
             patch_size=config.patch_size, n_pc=config.n_pc,
@@ -231,9 +277,9 @@ class EpochDriver:
         d = self._draws(g, xp_l, x_l, xp_u, x_u, lab_y)
         carry = self._carry(state)
         loss, metrics, writes = self._losses(
-            Apply(torch.nn.ModuleDict(self._modules(state))), d, lab_y,
-            carry, epoch, batch_index)
-        self._update(state, loss, *self._opts(state))
+            Apply(torch.nn.ModuleDict(self._modules(state)), mesh=self.mesh),
+            d, lab_y, carry, epoch, batch_index)
+        self._update(state, loss, *self._opts(state), mesh=self.mesh)
         self._write(carry, writes)
         return metrics
 
@@ -268,12 +314,15 @@ class EpochDriver:
         return metrics
 
     @staticmethod
-    def _update(state, loss: torch.Tensor, *opts) -> None:
-        """ONE backward over ``loss``, then each Adam steps in the given
-        order, and the state's step count advances."""
+    def _update(state, loss: torch.Tensor, *opts, mesh=None) -> None:
+        """ONE backward over ``loss``, the gradients summed over the ranks
+        of ``mesh`` (each holds its rows' share), then each Adam steps in
+        the given order, and the state's step count advances."""
         for opt in opts:
             opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads((p for opt in opts for group in opt.param_groups
+                          for p in group["params"]), mesh)
         for opt in opts:
             opt.step()
         state.step += 1
@@ -448,6 +497,21 @@ class EpochDriver:
             st.step = ms.step
         return ms.states
 
+    def place(self, state):
+        """``state`` as rank 0 holds it, on every rank of the mesh
+        (``core/mesh.place_state``); the identity on one process."""
+        return place_state(self.mesh, self, state)
+
+    def seed_block(self, num_iters: int) -> tuple:
+        """(lo, hi): the seeds of a fused run of ``num_iters`` that this
+        rank trains.  The seed axis is split over the ranks when they
+        divide it, else every rank trains every seed
+        (``cmlpl_tpu/train/driver.py:110-147``)."""
+        mesh = self.mesh
+        if is_multiprocess(mesh) and num_iters % mesh.size == 0:
+            return mesh.rows(num_iters)
+        return 0, num_iters
+
     def _run_extras(self) -> tuple:
         """The run program's per-run inputs after the schedule
         (``extra0``, ...), as the JAX trainer's ``_run_extras``."""
@@ -462,13 +526,20 @@ class EpochDriver:
         schedules are drawn iter-major from the one host sampler (seed 0's
         whole schedule first), and each seed's draws come from its own
         generator in the serial step's order.  Returns (the seeds' states,
-        in order; metrics stacked (S, E, N))."""
+        in order; metrics stacked (S, E, N)).
+
+        Over a mesh each rank trains the seeds of :meth:`seed_block`, with
+        no collective: every rank still makes every seed's state and draws
+        every seed's schedule, keeps its own, and its pool is its seeds'.
+        The states and metrics returned are those seeds'."""
         if states is None:
             states = [self.init_state((seed, i)) for i in range(num_iters)]
         if len(states) != num_iters:
             raise ValueError(f"{len(states)} states for {num_iters} runs")
         scheds = [stack_schedule(sampler, self.config.num_epochs)
                   for _ in range(num_iters)]
+        lo, hi = self.seed_block(num_iters)
+        states, scheds = states[lo:hi], scheds[lo:hi]
         li, ly, ui = (np.stack([s[j] for s in scheds]) for j in range(3))
         ms, metrics = self._run(self.stack_states(states), scene, li, ly,
                                 ui, range(self.config.num_epochs))
@@ -541,14 +612,15 @@ class TwoNetDriver(EpochDriver):
     def init_state(self, seed):
         """A fresh state from ``seed`` (an int or a sequence of ints, as
         ``numpy.random.SeedSequence`` takes): both nets' weights with
-        torch-default init bounds, and the run's generator."""
+        torch-default init bounds, and the run's generator; over a mesh,
+        rank 0's on every rank (:meth:`place`)."""
         cfg = self.config
         k_b, k_e, k_run = np.random.SeedSequence(seed).spawn(3)
         shape = dict(n_pc=cfg.n_pc, num_features=cfg.num_features,
                      num_classes=cfg.num_classes, patch_size=cfg.patch_size)
-        return self.new_state(init_basenet2_params(k_b, **shape),
-                              init_basenet2_params(k_e, **shape),
-                              int(k_run.generate_state(1)[0]))
+        return self.place(self.new_state(init_basenet2_params(k_b, **shape),
+                                         init_basenet2_params(k_e, **shape),
+                                         int(k_run.generate_state(1)[0])))
 
     def _modules(self, state) -> dict:
         return {"net_b": state.net_b.model, "net_e": state.net_e.model}

@@ -24,25 +24,11 @@ import shutil
 import numpy as np
 import torch
 
-from cmlpl_tpu_torch.weights import load_params_npz, save_params_npz
+from cmlpl_tpu_torch.weights import (StateTree, load_params_npz,
+                                     save_params_npz)
 
 STATE_FILE = "state.npz"
 GENERATOR_FILE = "generator.npy"
-
-
-class _Node(dict):
-    """One level of a nested dict, read as ``*_state_from_jax`` reads a
-    JAX state: fields by attribute, tuple entries by index."""
-
-    def __getattr__(self, name):
-        try:
-            return self[name]
-        except KeyError:
-            raise AttributeError(name) from None
-
-    def __getitem__(self, key):
-        value = super().__getitem__(str(key))
-        return _Node(value) if isinstance(value, dict) else value
 
 
 def save_checkpoint(directory: str, trainer, state,
@@ -88,7 +74,7 @@ def restore_checkpoint(directory: str, trainer, step: int | None = None):
     none."""
     path = checkpoint_path(directory, step)
     state = trainer.state_from_jax(
-        _Node(load_params_npz(os.path.join(path, STATE_FILE))))
+        StateTree(load_params_npz(os.path.join(path, STATE_FILE))))
     gen = os.path.join(path, GENERATOR_FILE)
     if os.path.exists(gen):
         state.generator.set_state(torch.from_numpy(np.load(gen)))

@@ -54,6 +54,7 @@ from cmlpl_tpu_torch.data.patches import gather_patches, gather_spectra
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision
 from cmlpl_tpu_torch.eval.inference import _dense_logits, _dense_params_view
+from cmlpl_tpu_torch.weights import StateTree
 
 FORMAT_VERSION = 1
 #: the gather modes an artifact can hold
@@ -703,7 +704,5 @@ def load_run_outputs(bundle_dir: str, outdir: str, trainer):
     """A native run's outputs as ``(state, metrics)``: the state of
     ``trainer`` (built by its ``state_from_jax``, so its generator is
     seeded as that seeds it) and ``{metric: (E, N) array}``."""
-    from cmlpl_tpu_torch.utils.checkpoint import _Node
-
     tree, metrics, _ = run_outputs_tree(bundle_dir, outdir)
-    return trainer.state_from_jax(_Node(tree)), metrics
+    return trainer.state_from_jax(StateTree(tree)), metrics

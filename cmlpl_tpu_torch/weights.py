@@ -33,6 +33,23 @@ from cmlpl_tpu_torch.models import common
 from cmlpl_tpu_torch.models.basenet import FEAT_DIM, joint_dim
 
 
+class StateTree(dict):
+    """A nested dict of a JAX-layout state (``*_state_to_jax``, a
+    ``state.npz`` read back, or one broadcast from another rank) read as
+    ``*_state_from_jax`` reads a JAX state: fields by attribute, tuple
+    entries by index."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def __getitem__(self, key):
+        value = super().__getitem__(str(key))
+        return StateTree(value) if isinstance(value, dict) else value
+
+
 #: torch weight dims -> the permutation to the flax kernel (conv HWIO /
 #: DHWIO, dense (in, out)); its inverse below
 _TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``cmlpl_tpu_torch/`` nor
-``chip_smoke.py`` imports JAX, flax, optax or the JAX package."""
+"""The port stands alone: no file of ``cmlpl_tpu_torch/``, nor
+``chip_smoke.py``, nor the data-parallel tests' rank worker imports JAX,
+flax, optax or the JAX package."""
 
 import ast
 import pathlib
@@ -9,7 +10,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cmlpl_tpu")
 FILES = sorted((ROOT / "cmlpl_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
 
 
 def imported_modules(tree: ast.AST):
@@ -33,7 +34,9 @@ def test_the_scan_sees_the_package():
             "cmlpl_tpu_torch/cli/train_backbone.py",
             "cmlpl_tpu_torch/train/supervised.py",
             "cmlpl_tpu_torch/models/zoo.py",
-            "cmlpl_tpu_torch/models/msvit.py"} <= names
+            "cmlpl_tpu_torch/models/msvit.py",
+            "cmlpl_tpu_torch/core/mesh.py",
+            "tests/torch_dist_worker.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
