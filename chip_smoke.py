@@ -87,13 +87,23 @@ whose "auto" pool is over the budget (kernel 1 twice a step on each
 rank), a 2-epoch CMLPL
 run (one pool a rank) whose net B map, one strip of 203 tiles a rank
 (kernel 1, counted by the wrapper and by the profiler), is bitwise the
-one-rank map, and a step's gradient all-reduce; at the end
-``cli.train --multihost`` as a one-rank NCCL world, 2 epochs of the
-default cell beside the same run with no process group
-(``multihost_world1``: OA within 1.0 point, one pool and 406 launches
-for each map,
-``ms_per_step`` of both, one step's gradients against the step with no
-group, the all-reduce and the draws every rank repeats).  Every
+one-rank map and whose dense map, one strip of scene rows a rank (no
+gather), is tie-safe the one-rank dense map, and a step's gradient
+all-reduce; then the zoo over the two ranks
+(``multihost_shared_card_zoo``): one step of each zoo model with a
+BatchNorm against the one-rank step (BatchNorm statistics of the global
+batch), SSFTT's replicas after 3 steps with its dropout and the
+augmentations, kernel 1 once a step under the profiler, and
+``cli.train_backbone --multihost --model ssrn`` (100 launches in
+training and 203 in its map's strip a rank, its map bitwise the one-rank
+map of its weights); at the end ``cli.train --multihost`` as a one-rank
+NCCL world, 2 epochs of the default cell beside the same run with no
+process group (``multihost_world1``: OA within 1.0 point, one pool and
+406 launches for each map, ``ms_per_step`` of both, one step's gradients
+against the step with no group, the all-reduce and the draws every rank
+repeats), and ``cli.train_backbone --multihost --model ssrn`` the same
+way (``multihost_world1_zoo``: OA within 1.0 point, 100 and 406
+launches, the BatchNorm all-reduces a step and their bytes).  Every
 phase prints one JSON line, with ``at_s``, its process's seconds since it
 started; the card's name and power limit, then a ``kernels`` line
 (launches on the main path, error, times, bounds, launch plans and B = 1
@@ -1731,13 +1741,13 @@ def phase_zoo_card_vs_cpu(cube, gt, device, flags_at_start) -> dict:
     from cmlpl_tpu_torch.models import common
     from cmlpl_tpu_torch.models.zoo import build_model
     from cmlpl_tpu_torch.registry import get_dataset
-    from cmlpl_tpu_torch.train.supervised import SupervisedTrainer
+    from cmlpl_tpu_torch.train.supervised import SupervisedTrainer, schedule
 
     spec = get_dataset(DATA_ID)
     labels = gt.reshape(-1).astype(np.int32)
     train = generate_splits(labels, num_label=5).train
-    li, ly = SupervisedTrainer._schedule(train, labels, ZOO_BATCH,
-                                         ZOO_STEPS_CHECKED, None, 1088)
+    li, ly = schedule(train, labels, ZOO_BATCH, ZOO_STEPS_CHECKED, None,
+                      1088)
     masks_drawn = []
 
     def same_mask(shape, rate, generator, dev):
@@ -3563,7 +3573,239 @@ def timed_all_reduce_ms(numel: int, device, rounds: int = 20) -> float:
     return (time.perf_counter() - t0) / rounds * 1e3
 
 
-def run_shared_card_rank() -> dict:
+#: the ZOO entries with a BatchNorm: one step of each over two ranks
+ZOO_BN_MODELS = ("ssftt", "dbda", "dbda_feature", "ssrn", "fdssc", "msvit")
+#: the zoo model of the multi-rank CLI runs (3-D BatchNorms, 100 steps)
+MH_ZOO_MODEL = "ssrn"
+
+
+def zoo_mh_scenes(cube, gt, device, names) -> dict:
+    """The PaviaU-size scene at each of ``names``' own (w, n_pc), prepared
+    once a shape: {name: scene}."""
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+
+    shapes, scenes = zoo_shapes(), {}
+    by_shape = {}
+    for name in names:
+        w, n_pc = shapes[name]
+        if (w, n_pc) not in by_shape:
+            by_shape[w, n_pc] = prepare_scene(DATA_ID, cube=cube, gt=gt,
+                                              patch_size=w, n_pc=n_pc,
+                                              device=device)
+        scenes[name] = by_shape[w, n_pc]
+    return scenes
+
+
+def zoo_mh_trainer(name, scene, mesh=None, **kw):
+    from cmlpl_tpu_torch.registry import get_dataset
+    from cmlpl_tpu_torch.train.supervised import SupervisedTrainer
+
+    return SupervisedTrainer(name, get_dataset(DATA_ID),
+                             patch_size=scene.patch_size, n_pc=scene.n_pc,
+                             device=scene.device, mesh=mesh, **kw)
+
+
+def zoo_mh_step(name, scene, li, ly, mesh=None) -> tuple:
+    """One supervised step of ``name`` from ``init_state(SEED)`` on the
+    ids ``li``, dropout off (its layers' rates set to 0) and no
+    augmentation: (param names, loss, step-1 gradients, params, BN
+    statistics), on the host; over a mesh the summed gradient and the
+    replicated state."""
+    from cmlpl_tpu_torch.models.common import Dropout
+
+    trainer = zoo_mh_trainer(name, scene, mesh)
+    state = trainer.init_state(SEED)
+    for m in state.model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    state, m = trainer.train_step(state, scene, li, ly)
+    names, params = zip(*state.model.named_parameters())
+    return (names, float(m["cls_loss"]),
+            [torch.zeros(p.shape) if p.grad is None else p.grad.cpu().clone()
+             for p in params],
+            [p.detach().cpu().clone() for p in params],
+            {k: v.cpu().clone() for k, v in state.model.named_buffers()})
+
+
+def hold_zoo_step(name: str, got, want) -> dict:
+    """Two ranks' step against one rank's, both on the card: the losses at
+    the card-vs-CPU bounds; the step-1 gradients, but those that are
+    rounding only (a conv bias read only by train-mode BatchNorms: exact
+    gradient 0), whose weights are held to Adam's reach after the step
+    (2 lr), within CARD_CPU_GRAD_TOL of the model's largest gradient, as
+    ``phase_zoo_card_vs_cpu`` holds them: the 3-D models' BatchNorm
+    reductions cancel, and cuDNN sums them over 22 rows in another order
+    than over 44 (each tensor's gap over its own largest is reported, with
+    the tensor); the BN running statistics within CARD_CPU_GRAD_TOL of
+    each tensor's largest."""
+    (names, lg, gg, pg, sg), (_, lw, gw, pw, sw) = got, want
+    require(np.isfinite(lg) and np.isclose(lg, lw, rtol=CARD_CPU_LOSS_RTOL,
+                                           atol=CARD_CPU_LOSS_ATOL),
+            f"{name}: two-rank loss {lg} vs one-rank {lw}")
+    top = max(float(g.abs().max()) for g in gw)
+    noise = [0 < float(g.abs().max()) < ROUNDING_ONLY * top for g in gw]
+    kept = [(n_, a, b) for n_, a, b, n in zip(names, gg, gw, noise)
+            if not n]
+    diffs = [float((a - b).abs().max()) for _, a, b in kept]
+    model_gap = max(diffs) / top
+    require(model_gap <= CARD_CPU_GRAD_TOL,
+            f"{name}: step-1 gradients {model_gap} of the model's largest "
+            "apart")
+    per_tensor = [d / max(float(b.abs().max()), 1e-30)
+                  for d, (_, _, b) in zip(diffs, kept)]
+    worst = int(np.argmax(per_tensor))
+    reach = max((float((a - b).abs().max())
+                 for a, b, n in zip(pg, pw, noise) if n), default=0.0)
+    require(reach <= 2 * 5e-4,
+            f"{name}: a rounding-only weight moved {reach} (reach 1e-3)")
+    stats = max((float((sg[k] - sw[k]).abs().max())
+                 / max(float(sw[k].abs().max()), 1e-12) for k in sw),
+                default=0.0)
+    require(stats <= CARD_CPU_GRAD_TOL,
+            f"{name}: BN statistics {stats} of a tensor's largest apart")
+    return {"loss_abs_diff": abs(lg - lw),
+            "step1_grad_max_diff_of_model_max": model_gap,
+            "step1_grad_max_diff_of_tensor_max": per_tensor[worst],
+            "step1_grad_worst_tensor": kept[worst][0],
+            "rounding_only_tensors": int(sum(noise)),
+            "rounding_only_params_max_abs_diff": reach,
+            "bn_stats_max_diff_of_tensor_max": stats}
+
+
+def zoo_digest(state) -> str:
+    """sha256 of a supervised state (the model's params and BN statistics,
+    the EMA teacher's, the Adam moments and steps, the generator's state
+    and its next draw) and its step."""
+    h = hashlib.sha256()
+    tensors = list(state.model.state_dict().values())
+    if state.ema is not None:
+        tensors += list(state.ema.state_dict().values())
+    for p in state.model.parameters():
+        st = state.opt.state.get(p, {})
+        tensors += [st[k] for k in sorted(st)]
+    tensors += [state.generator.get_state(),
+                torch.rand(8, generator=state.generator,
+                           device=state.generator.device)]
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    h.update(str(state.step).encode())
+    return h.hexdigest()
+
+
+def zoo_cli_run(tmp, counter_fn, extra=()) -> tuple:
+    """``cli.train_backbone --model MH_ZOO_MODEL --num_epochs ZOO_EPOCHS``
+    on dataID 1 with ``extra``, the gather counts reset first: (its
+    accuracy, its report: train_s, ms_per_step, steps, map_s, kernel 1's
+    launches in training and in the map)."""
+    from cmlpl_tpu_torch.cli import train_backbone
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+
+    os.makedirs(tmp, exist_ok=True)
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    acc, lines, counts = run_cli(train_backbone.main, [
+        "--dataID", str(DATA_ID), "--model", MH_ZOO_MODEL, "--num_epochs",
+        str(ZOO_EPOCHS), "--data_root", tmp, "--save_path_prefix", tmp,
+        "--weights_out", os.path.join(tmp, f"{MH_ZOO_MODEL}.npz"), *extra],
+        counter_fn)
+    train_s, in_training = line_value(lines, counts, "training time")
+    steps = int(re.search(r"\((\d+) steps\)", next(
+        ln for ln in lines if ln.startswith("training time"))).group(1))
+    map_s, at_map = line_value(lines, counts, "full-scene inference time")
+    require(steps == ZOO_EPOCHS, f"{MH_ZOO_MODEL} CLI: {steps} steps")
+    return acc, {"steps": steps, "train_s": train_s,
+                 "ms_per_step": train_s / steps * 1e3, "map_s": map_s,
+                 "launches_training": list(in_training),
+                 "launches_map": [a - b for a, b in zip(at_map,
+                                                        in_training)],
+                 "oa": acc.oa}
+
+
+def shared_card_zoo(mesh, cube, gt, device, tmp) -> dict:
+    """The zoo over the two ranks of :func:`run_shared_card_rank`: one step
+    of each ZOO_BN_MODELS entry against the one-rank step (rank 0), 3
+    steps of SSFTT with its dropout and the augmentations on (the
+    replicas' digest), kernel 1 a step over 5 SSRN steps under the
+    profiler, and ``cli.train_backbone --multihost --model ssrn`` (100
+    epochs): its training and strip map's launches, its map recorded and,
+    on rank 0, held bitwise to the one-rank map of its weights."""
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.eval.inference import ScenePredictor
+    from cmlpl_tpu_torch.models.zoo import build_model
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+    from cmlpl_tpu_torch.registry import get_dataset
+    from cmlpl_tpu_torch.train.supervised import schedule
+    from cmlpl_tpu_torch.weights import (load_params_npz,
+                                         zoo_state_dict_from_jax)
+
+    def counter_fn():
+        return tuple(w.launches for w in WRAPPERS)
+
+    out = {"steps": {}}
+    scenes = zoo_mh_scenes(cube, gt, device, ZOO_BN_MODELS)
+    labels = gt.reshape(-1).astype(np.int32)
+    train = generate_splits(labels, num_label=5).train
+    # 45 labels on 2 ranks: batches of 44
+    li, ly = schedule(train, labels, ZOO_BATCH, 3, None, 1088, data=2)
+    out["batch"] = int(li.shape[1])
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    for name in ZOO_BN_MODELS:
+        two = zoo_mh_step(name, scenes[name], li[0], ly[0], mesh)
+        if mesh.rank == 0:
+            out["steps"][name] = hold_zoo_step(
+                name, two, zoo_mh_step(name, scenes[name], li[0], ly[0]))
+    out["step_launches"] = list(counter_fn())
+    # dropout and the augmentations on, an EMA teacher: the replicas
+    trainer = zoo_mh_trainer("ssftt", scenes["ssftt"], mesh, augment=True,
+                             ema_alpha=0.95)
+    state = trainer.init_state(SEED)
+    state, _ = trainer.train_run(state, scenes["ssftt"], li, ly)
+    out["ssftt_digest"] = zoo_digest(state)
+    # kernel 1 once a step on each rank, counted by the profiler
+    trainer = zoo_mh_trainer(MH_ZOO_MODEL, scenes[MH_ZOO_MODEL], mesh)
+    state = trainer.init_state(SEED)
+    five_li, five_ly = schedule(train, labels, ZOO_BATCH, 5, None, 7, data=2)
+    _, counts, _ = profiled(lambda: trainer.train_run(
+        state, scenes[MH_ZOO_MODEL], five_li, five_ly), [()])
+    out["profiled_5_steps_launches"] = sum(
+        n for k, n in counts.items() if KERNEL_NEEDLE in k)
+    # the CLI over the two ranks; its map, as ScenePredictor returned it
+    maps = []
+    call = ScenePredictor.__call__
+
+    def recording(self, scene):
+        labels_ = call(self, scene)
+        maps.append(labels_)
+        return labels_
+
+    ScenePredictor.__call__ = recording
+    try:
+        acc, out["cli"] = zoo_cli_run(os.path.join(tmp, "zoo_cli"),
+                                      counter_fn, ["--multihost"])
+    finally:
+        ScenePredictor.__call__ = call
+    require(len(maps) == 1, f"{len(maps)} maps recorded")
+    out["cli_map_digest"] = hashlib.sha256(maps[0].tobytes()).hexdigest()
+    if mesh.rank == 0:
+        scene = scenes[MH_ZOO_MODEL]
+        model, _ = build_model(MH_ZOO_MODEL, get_dataset(DATA_ID),
+                               scene.n_pc, scene.patch_size)
+        model.load_state_dict(zoo_state_dict_from_jax(
+            MH_ZOO_MODEL, load_params_npz(os.path.join(
+                tmp, "zoo_cli", f"{MH_ZOO_MODEL}.npz"))))
+        model = model.to(device).eval()
+        one = ScenePredictor(lambda xp, x: model(xp),
+                             patch_size=scene.patch_size, cols=scene.cols,
+                             tile=TILE, gather="pallas",
+                             spectra=False)(scene)
+        out["cli_map_equals_one_rank_map"] = bool(np.array_equal(maps[0],
+                                                                 one))
+    return out
+
+
+def run_shared_card_rank(tmp) -> dict:
     """One of two gloo ranks on ``cuda:0`` (torchrun's environment set by
     :func:`phase_multihost_shared_card`), through the library: gloo's
     collectives on CUDA tensors; a noise-off step of CMLPL, CPS and CCT
@@ -3571,8 +3813,10 @@ def run_shared_card_rank() -> dict:
     a bf16 CMLPL step (kernel 2's pool); CMLPL steps with an "auto" pool
     over the budget (kernel 1 twice a step); a 2-epoch CMLPL run (one pool),
     its net B's map (one strip of 203 tiles a rank, counted by the wrapper
-    and by the profiler; rank 0 also maps the whole scene on one rank), a
-    one-step call's pool under the profiler, and a step's all-reduce."""
+    and by the profiler; rank 0 also maps the whole scene on one rank) and
+    its dense map in strips of scene rows (rank 0 also maps it whole), a
+    one-step call's pool under the profiler, a step's all-reduce; then
+    the zoo (:func:`shared_card_zoo`), its CLI's files under ``tmp``."""
     import torch.distributed as dist
 
     from cmlpl_tpu_torch.cli._common import logits_fn
@@ -3683,6 +3927,27 @@ def run_shared_card_rank() -> dict:
                              cols=tscene.cols, tile=TILE,
                              gather="pallas")(tscene)
         out["map_equals_one_rank_map"] = bool(np.array_equal(labels, one))
+    # the dense map in strips of scene rows: no gather launch
+    from cmlpl_tpu_torch.eval.inference import dense_scene_logits
+
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    dense = ScenePredictor(None, patch_size=W, cols=tscene.cols,
+                           gather="dense", params=model.state_dict(),
+                           mesh=mesh)(tscene)
+    out["dense_launches"] = [w.launches for w in WRAPPERS]
+    out["dense_digest"] = hashlib.sha256(dense.tobytes()).hexdigest()
+    if mesh.rank == 0:
+        whole = ScenePredictor(None, patch_size=W, cols=tscene.cols,
+                               gather="dense",
+                               params=model.state_dict())(tscene)
+        with torch.inference_mode():
+            logits = dense_scene_logits(model.state_dict(), tscene)
+        tie_safe_equal(dense, whole, lambda ids: logits[torch.from_numpy(
+            ids).to(device)], "two-rank dense map vs the one-rank one")
+        out["dense_differing_pixels"] = int((dense != whole).sum())
+        out["dense_oa_net_b"] = cal_accuracy(
+            dense[splits.test], tscene.labels[splits.test] - 1).oa
     # a one-step call's pool under the profiler: one kernel-1 launch
     pool_trainer = mh_trainer("cmlpl", mesh)
     pool_state = pool_trainer.init_state(SEED)
@@ -3694,6 +3959,7 @@ def run_shared_card_rank() -> dict:
     numel = sum(p.numel() for p in trainer.named_params(state).values())
     out["all_reduce"] = {"bytes": numel * 4,
                          "ms": timed_all_reduce_ms(numel, device)}
+    out["zoo"] = shared_card_zoo(mesh, cube, gt, device, tmp)
     dist.destroy_process_group()
     return out
 
@@ -3703,7 +3969,8 @@ def start_shared_card(tmp):
     env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
            "WORLD_SIZE": "2", "LOCAL_RANK": "0"}
     return [start_child(os.path.join(tmp, f"rank{r}"),
-                        "run_shared_card_rank", env=dict(env, RANK=str(r)))
+                        "run_shared_card_rank", os.path.join(tmp, "files"),
+                        env=dict(env, RANK=str(r)))
             for r in range(2)]
 
 
@@ -3736,9 +4003,37 @@ def phase_multihost_shared_card(children) -> dict:
                 f"{r['over_budget_step_launches']}, over 3 steps "
                 f"{r['over_budget_3_step_launches']}")
         require(r["steps_run"] == 156, f"steps {r['steps_run']}")
-    for key in ("digests", "run_digest", "labels_digest", "oa_net_b"):
+        require(r["dense_launches"] == [0, 0],
+                f"rank {r['rank']}: dense map launches {r['dense_launches']}")
+        z = r["zoo"]
+        n_zoo = len(ZOO_BN_MODELS)
+        require(z["batch"] == 44, f"zoo batch {z['batch']} on two ranks")
+        require(z["step_launches"] == [2 * n_zoo if r["rank"] == 0
+                                       else n_zoo, 0],
+                f"rank {r['rank']}: zoo steps' launches "
+                f"{z['step_launches']}")
+        require(z["profiled_5_steps_launches"] == 5,
+                f"rank {r['rank']}: {MH_ZOO_MODEL} 5 steps, kernel 1 "
+                f"{z['profiled_5_steps_launches']} times (profiler)")
+        require(z["cli"]["launches_training"] == [ZOO_EPOCHS, 0]
+                and z["cli"]["launches_map"] == [203, 0],
+                f"rank {r['rank']}: train_backbone --multihost launches "
+                f"{z['cli']}")
+    for key in ("digests", "run_digest", "labels_digest", "oa_net_b",
+                "dense_digest"):
         require(r0[key] == r1[key], f"the ranks differ in {key}: "
                 f"{r0[key]} vs {r1[key]}")
+    for key in ("ssftt_digest", "cli_map_digest"):
+        require(r0["zoo"][key] == r1["zoo"][key],
+                f"the ranks differ in zoo {key}")
+    require(r0["zoo"]["cli"]["oa"] == r1["zoo"]["cli"]["oa"],
+            f"train_backbone --multihost OA {r0['zoo']['cli']['oa']} vs "
+            f"{r1['zoo']['cli']['oa']}")
+    require(r0["zoo"]["cli_map_equals_one_rank_map"],
+            "train_backbone --multihost: the strip map is not bitwise the "
+            "one-rank map of its weights")
+    require(set(r0["zoo"]["steps"]) == set(ZOO_BN_MODELS),
+            f"zoo steps held: {sorted(r0['zoo']['steps'])}")
     require(r0["map_equals_one_rank_map"],
             "the two-rank map is not bitwise the one-rank map")
     require(r0["oa_net_b"] > 0.5, f"OA net B {r0['oa_net_b']}")
@@ -3765,10 +4060,28 @@ def phase_multihost_shared_card(children) -> dict:
                                  "map": r["map_launches"][0],
                                  "bf16_pool": r["bf16_launches"][1]}
                                 for r in ranks],
-          "map_equals_one_rank_map": True, "oa_net_b": r0["oa_net_b"]})
+          "map_equals_one_rank_map": True, "oa_net_b": r0["oa_net_b"],
+          "dense_map": {"launches": r0["dense_launches"],
+                        "differing_pixels_vs_one_rank":
+                        r0["dense_differing_pixels"],
+                        "oa_net_b": r0["dense_oa_net_b"]}})
+    z0 = r0["zoo"]
+    emit({"phase": "multihost_shared_card_zoo", "ranks": 2,
+          "backend": "gloo", "batch": z0["batch"],
+          "one_step_vs_one_rank": z0["steps"],
+          "ssftt_dropout_augment_3_steps_replicas_equal": True,
+          "profiled_5_steps_kernel1": [r["zoo"]["profiled_5_steps_launches"]
+                                       for r in ranks],
+          "cli": [r["zoo"]["cli"] for r in ranks],
+          "cli_map_equals_one_rank_map": True,
+          "ms_per_step_note": "two ranks share one card: not a speed "
+                              "figure"})
     return {"train": r0["train_launches"][0], "map": r0["map_launches"][0],
             "bf16": r0["bf16_launches"][1],
-            "over_budget": r0["over_budget_3_step_launches"][0]}
+            "over_budget": r0["over_budget_3_step_launches"][0],
+            "zoo_steps": r0["zoo"]["step_launches"][0],
+            "zoo_train": r0["zoo"]["cli"]["launches_training"][0],
+            "zoo_map": r0["zoo"]["cli"]["launches_map"][0]}
 
 
 def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
@@ -3783,9 +4096,12 @@ def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
     from cmlpl_tpu_torch.cli import train as cli_train
     from cmlpl_tpu_torch.core.mesh import create_mesh
 
+    from cmlpl_tpu_torch.core.mesh import all_reduce_sum
+
     maps = ("net B", "net E")
     (b0, e0), plain = train_cli_run(cli_train.main, os.path.join(tmp, "p"),
                                     "plain", counter_fn, maps, epochs=2)
+    zoo_acc0, zoo_plain = zoo_cli_run(os.path.join(tmp, "zp"), counter_fn)
     env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
            "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
     os.environ.update(env)
@@ -3796,6 +4112,13 @@ def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
         require(dist.is_initialized() and dist.get_backend() == "nccl"
                 and dist.get_world_size() == 1,
                 "cli.train --multihost did not start a one-rank NCCL world")
+        all_reduce_sum.calls = all_reduce_sum.bytes = 0
+        zoo_acc1, zoo_world = zoo_cli_run(os.path.join(tmp, "zw"),
+                                          counter_fn, ["--multihost"])
+        zoo_world["bn_all_reduces_per_step"] = (all_reduce_sum.calls
+                                                / zoo_world["steps"])
+        zoo_world["bn_all_reduce_bytes_per_step"] = (all_reduce_sum.bytes
+                                                     / zoo_world["steps"])
         mesh = create_mesh()
         li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
         first = (li[0], ly[0], ui[0])
@@ -3830,10 +4153,17 @@ def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
                           "gather_patches_bf16": 0}
                     for n in rep["launches_per_map"].values()),
                 f"launches a map {rep['launches_per_map']}")
-    for got, want, net in ((b1, b0, "B"), (e1, e0, "E")):
+    for got, want, net in ((b1, b0, "B"), (e1, e0, "E"),
+                           (zoo_acc1, zoo_acc0, MH_ZOO_MODEL)):
         require(abs(got.oa - want.oa) * 100 <= 1.0,
                 f"net {net}: OA {got.oa} over a world of one, {want.oa} "
                 "without")
+    for rep in (zoo_plain, zoo_world):
+        require(rep["launches_training"] == [ZOO_EPOCHS, 0]
+                and rep["launches_map"] == [406, 0],
+                f"train_backbone --model {MH_ZOO_MODEL} launches {rep}")
+    require(zoo_world["bn_all_reduces_per_step"] > 0,
+            "no BatchNorm all-reduce over the world of one")
     emit({"phase": "multihost_world1", "backend": "nccl", "world": 1,
           "epochs": 2, "ms_per_step": world["ms_per_step"],
           "ms_per_step_no_group": plain["ms_per_step"],
@@ -3846,8 +4176,13 @@ def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
           "launches_training": world["launches_training"],
           "launches_per_map": world["launches_per_map"],
           "launches_per_map_no_group": plain["launches_per_map"]})
+    emit({"phase": "multihost_world1_zoo", "backend": "nccl", "world": 1,
+          "model": MH_ZOO_MODEL, "epochs": ZOO_EPOCHS, "world1": zoo_world,
+          "no_group": zoo_plain})
     return {"train": world["launches_training"]["gather_patches_f32"],
-            "map": world["launches_per_map"]["net B"]["gather_patches_f32"]}
+            "map": world["launches_per_map"]["net B"]["gather_patches_f32"],
+            "zoo_train": zoo_world["launches_training"][0],
+            "zoo_map": zoo_world["launches_map"][0]}
 
 
 def watch_host_memory(low: list, stop: threading.Event) -> None:
@@ -4273,7 +4608,20 @@ def main() -> int:
             "two gloo ranks on one card, net B's map, each rank's strip":
             shared_card["map"],
             "two gloo ranks on one card, CMLPL 3 steps, auto over the pool "
-            "budget (kernel 1 a step), each rank": shared_card["over_budget"]},
+            "budget (kernel 1 a step), each rank": shared_card["over_budget"],
+            "two gloo ranks on one card, one step of each zoo model with a "
+            "BatchNorm (auto: kernel 1 a step), rank 0 (also the one-rank "
+            "steps)": shared_card["zoo_steps"],
+            f"two gloo ranks on one card, cli.train_backbone --multihost "
+            f"--model {MH_ZOO_MODEL}, training, each rank":
+            shared_card["zoo_train"],
+            f"two gloo ranks on one card, cli.train_backbone --multihost "
+            f"--model {MH_ZOO_MODEL}, its map's strip, each rank":
+            shared_card["zoo_map"],
+            f"cli.train_backbone --multihost --model {MH_ZOO_MODEL}, a "
+            "one-rank NCCL world, training": world1["zoo_train"],
+            f"cli.train_backbone --multihost --model {MH_ZOO_MODEL}, a "
+            "one-rank NCCL world, one map": world1["zoo_map"]},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
             per_step["pallas_bf16"]["launches_training"][1],

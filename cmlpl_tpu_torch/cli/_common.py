@@ -13,12 +13,13 @@ train, train_cps and train_cct read :func:`train_parser`: its
 the JAX package's directory contract in a format of the port's own), and
 that predict and serve map with.
 
-``--multihost`` (train, train_cps, train_cct, export_model) joins the
-``torchrun`` world before anything else (:func:`setup_runtime`, a no-op
-for one process): one process a card, the trainers data parallel over
-the ranks and the map split into one strip of tiles a rank
-(``core/mesh.py``).  Rank 0 writes the files (``core/mesh.is_primary``);
-every rank prints its results.
+``--multihost`` (train, train_cps, train_cct, train_backbone,
+export_model) joins the ``torchrun`` world before anything else
+(:func:`setup_runtime`, a no-op for one process): one process a card, the
+trainers data parallel over the ranks and the map split into one strip a
+rank, of tiles or, dense, of scene rows (``core/mesh.py``).  Rank 0
+writes the files (``core/mesh.is_primary``); every rank prints its
+results.
 """
 
 from __future__ import annotations
@@ -473,9 +474,9 @@ def scene_map(args, scene, model_fn, params, name: str,
     """The full-scene map of a trained model with ``--eval_gather``:
     ``model_fn(xp, x) -> logits`` for the tiled modes, its ``state_dict``
     ``params`` for "dense"; ``spectra=False`` for a model of patches only;
-    over ``mesh``, one strip of tiles a rank and the whole map on every
-    rank.  Prints the "full-scene inference time (<name>) == <s>s"
-    line."""
+    over ``mesh``, one strip a rank (of tiles, or of scene rows for
+    "dense") and the whole map on every rank.  Prints the "full-scene
+    inference time (<name>) == <s>s" line."""
     predictor = ScenePredictor(model_fn, params=params,
                                patch_size=scene.patch_size, cols=scene.cols,
                                tile=args.val_batch_size,

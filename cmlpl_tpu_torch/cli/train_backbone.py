@@ -14,8 +14,13 @@ noise; ``--epoch_samples N`` tiles the labeled split to N a epoch.  The
 checkpoint flags work as in ``cli.train``.  ``--eval_gather dense`` raises
 ValueError, as in the JAX CLI: the dense pass needs BaseNet2-shaped
 params.  ``--scene_npz`` and ``--splits_dir`` are read (the JAX CLI
-accepts and ignores them).  ``--weights_out`` writes the model's
-``{"params", "batch_stats"}`` as a flat JAX-layout npz.  The flags of the
+accepts and ignores them).  ``--multihost`` trains data parallel over the
+``torchrun`` world, one process a card (``train/supervised.py``: the
+BatchNorms take the global batch's statistics, the batch is rounded to a
+multiple of the ranks), and maps in one strip of tiles a rank; every rank
+prints the same results and rank 0 writes the files.  ``--weights_out``
+writes the model's ``{"params", "batch_stats"}`` as a flat JAX-layout
+npz.  The flags of the
 semi-supervised CLIs that mean nothing here are accepted and ignored, as
 in the JAX package.
 """
@@ -25,12 +30,13 @@ from __future__ import annotations
 import os
 import time
 
-from cmlpl_tpu_torch.cli._common import (build_scene, make_epoch_hook,
-                                         maybe_resume, report_accuracy,
-                                         run_resilient,
+from cmlpl_tpu_torch.cli._common import (build_scene, is_primary,
+                                         make_epoch_hook, maybe_resume,
+                                         report_accuracy, run_resilient,
                                          save_final_checkpoint, save_history,
-                                         save_path, scene_map, sync,
-                                         train_parser)
+                                         save_path, scene_map, setup_runtime,
+                                         sync, train_parser)
+from cmlpl_tpu_torch.core.mesh import create_mesh
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.metrics import cal_accuracy
 from cmlpl_tpu_torch.eval.report import save_report
@@ -70,11 +76,9 @@ def entry_shape(args, entry, spec) -> tuple[int, int]:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.multihost:
-        raise SystemExit(
-            "cli.train_backbone --multihost is not ported yet (ROADMAP item "
-            "10b): its BatchNorms need statistics over the global batch")
+    setup_runtime(args)
     device = resolve_device(args.device)
+    mesh = create_mesh(device)
     entry = ZOO[args.model]
     w, n_pc = entry_shape(args, entry, get_dataset(args.dataID))
     spec, scene, splits = build_scene(args, device, patch_size=w, n_pc=n_pc)
@@ -82,7 +86,8 @@ def main(argv=None):
     trainer = SupervisedTrainer(
         args.model, spec, lr=args.lr, patch_size=w, n_pc=n_pc,
         augment=bool(args.augment), gather_impl=args.gather_impl,
-        ema_alpha=args.ema_teacher, device=device)
+        ema_alpha=args.ema_teacher, device=device, mesh=mesh)
+    # the trainer rounds it to a multiple of the ranks
     bs = min(args.labeled_batch_size, len(splits.train))
     state, start_epoch = maybe_resume(
         args, trainer, trainer.init_state(args.seed),
@@ -109,19 +114,20 @@ def main(argv=None):
         model = trainer.eval_model(state, ema=ema)
         pred = scene_map(args, scene, trainer.logits_fn(model),
                          trainer.eval_variables(state, ema=ema), name,
-                         spectra=spectra)
+                         spectra=spectra, mesh=mesh)
         acc = cal_accuracy(pred[splits.test], y_test)
         report_accuracy(name, acc)
         results.append((pred, acc))
 
     pred, acc = results[0]
-    out = save_path(args, spec)
-    save_class_map(
-        os.path.join(out, f"{args.model}_OA_{int(acc.oa * 10000)}.svg"),
-        pred + 1, spec, rows=scene.rows, cols=scene.cols)
-    save_report(os.path.join(out, f"{args.model}_results.csv"), [acc])
+    if is_primary():
+        out = save_path(args, spec)
+        save_class_map(
+            os.path.join(out, f"{args.model}_OA_{int(acc.oa * 10000)}.svg"),
+            pred + 1, spec, rows=scene.rows, cols=scene.cols)
+        save_report(os.path.join(out, f"{args.model}_results.csv"), [acc])
     save_final_checkpoint(args, trainer, state)
-    if args.weights_out:
+    if args.weights_out and is_primary():
         save_params_npz(args.weights_out, zoo_variables_to_jax(
             args.model, state.model.state_dict()))
         print(f"wrote {args.weights_out}")

@@ -25,7 +25,14 @@ semantics by hand, with no DDP and no rank-local loss:
   whole one;
 - the random draws are global: every rank holds the same generator
   (:func:`place_state` broadcasts rank 0's) and draws the whole batch's
-  views, then takes its rows.
+  views, then takes its rows;
+- a layer that reads the whole batch inside a sharded call (a
+  train-mode BatchNorm, a dropout that draws its own mask) learns its
+  rank's rows of the global batch from :func:`batch_shard`, which the
+  sharded call sets (:func:`sharded_batch`): BatchNorm then normalises by
+  the global batch's statistics, summed over the ranks by
+  :func:`all_reduce_sum`, whose backward sums the ranks' gradients too,
+  and dropout draws the global batch's mask and keeps its rows.
 
 The gather is an ``all_reduce(SUM)`` of a zero-filled global buffer into
 which each rank writes its rows: ``x + 0 = x`` exactly, and besides
@@ -41,6 +48,7 @@ identity.  The ("data", "model") mesh of ``create_mesh_2d`` is not ported
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -48,7 +56,6 @@ import torch
 import torch.distributed as dist
 
 from cmlpl_tpu_torch.device import resolve_device
-from cmlpl_tpu_torch.weights import StateTree
 
 
 def initialize_multihost(backend: str | None = None, device=None) -> int:
@@ -204,6 +211,75 @@ def all_gather_rows(x, mesh: Mesh | None):
     return _GatherRows.apply(x, mesh, mesh.rank * x.shape[0], total)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Forward: the sum of ``x`` over the ranks.  Backward: the sum of the
+    output's gradient over the ranks, since each rank's gradient there is
+    its own rows' part of the global one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _summed(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad)
+
+
+def _summed(x: torch.Tensor) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out)
+    all_reduce_sum.calls += 1
+    all_reduce_sum.bytes += out.numel() * out.element_size()
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The sum of a small tensor (a layer's per-channel sums) over the
+    ranks, differentiable (:class:`_AllReduceSum`); the identity without a
+    process group.  ``all_reduce_sum.calls`` and ``.bytes`` count the
+    all-reduces it made, forward and backward."""
+    if not is_distributed(mesh):
+        return x
+    return _AllReduceSum.apply(x)
+
+
+all_reduce_sum.calls = 0
+all_reduce_sum.bytes = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """A sharded call's rows of the global batch: rows ``lo:lo + n`` of
+    ``total`` on ``mesh``'s rank."""
+    mesh: Mesh
+    lo: int
+    total: int
+
+
+_SHARD: BatchShard | None = None
+
+
+@contextlib.contextmanager
+def sharded_batch(mesh: Mesh | None, lo: int, total: int):
+    """Inside, :func:`batch_shard` tells the layers of a sharded call that
+    their batch is rows ``lo:`` of a global batch of ``total`` rows on
+    ``mesh``; without a process group it tells them nothing."""
+    global _SHARD
+    prev = _SHARD
+    if is_distributed(mesh):
+        _SHARD = BatchShard(mesh, lo, total)
+    try:
+        yield
+    finally:
+        _SHARD = prev
+
+
+def batch_shard() -> BatchShard | None:
+    """The current sharded call's :class:`BatchShard`, or None (a whole
+    batch on one process)."""
+    return _SHARD
+
+
 def all_reduce_grads(params, mesh: Mesh | None) -> int:
     """Sums the gradients of ``params`` over the ranks in place, as ONE
     ``all_reduce`` of one flat f32 buffer (a sum, not a mean: each rank
@@ -249,6 +325,10 @@ def place_state(mesh: Mesh | None, trainer, state, src: int = 0):
     source too, rebuilds its state from the broadcast copy, so the
     replicas start bitwise equal.  The identity without a process
     group."""
+    # imported here: weights imports the models, whose layers import this
+    # module for batch_shard
+    from cmlpl_tpu_torch.weights import StateTree
+
     if not is_distributed(mesh):
         return state
     tree, gen = broadcast_object(

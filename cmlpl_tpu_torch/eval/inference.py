@@ -17,9 +17,13 @@ Over a mesh of ranks (``ScenePredictor(..., mesh=)``, the JAX package's
 to a multiple of ``tile`` times the ranks, rank r maps the r-th contiguous
 strip of tiles, launching its gather kernel for those tiles only, and the
 labels are gathered (int32) to every rank.  The tiles are the one-rank
-map's, so the labels are bitwise its labels.  The dense map runs whole on
-every rank (its split across ranks, GSPMD's halo exchange in the JAX
-package, waits for ROADMAP item 10b).
+map's, so the labels are bitwise its labels.  The dense map splits into
+contiguous strips of scene rows, ragged where the rows do not divide
+(:func:`strip_rows`; the JAX package shards the padded cube's rows with
+GSPMD, ``:264-318``): rank r runs the same dilated pass over the slice of
+the replicated padded cube that its strip and the conv stack's halo need
+(:func:`dense_strip_logits`), and the int32 labels are gathered to every
+rank.  A strip's logits are the whole pass's within rounding.
 """
 
 from __future__ import annotations
@@ -100,28 +104,27 @@ def dense_scene_logits(params: Mapping, scene: PreparedScene
                              scene.patch_size)
 
 
-def _dense_logits(params: dict, padded: torch.Tensor, spectra: torch.Tensor,
-                  rows: int, cols: int, patch_size: int) -> torch.Tensor:
-    p = {k: v.to(padded.device, torch.float32) for k, v in params.items()}
-    g = patch_size // 4
+def _conv(p: dict, x, layer, dilation=1, padding=0):
+    return F.conv2d(x, p[f"{layer}.weight"], p[f"{layer}.bias"],
+                    padding=padding, dilation=dilation)
 
-    def conv(x, layer, dilation=1, padding=0):
-        return F.conv2d(x, p[f"{layer}.weight"], p[f"{layer}.bias"],
-                        padding=padding, dilation=dilation)
 
-    cube = padded.float().permute(2, 0, 1)[None]         # (1, C, H, W)
-    f0 = conv(cube, "conv0")
-    f1 = F.relu(conv(f0, "conv1", padding=1) + f0)
-    p1 = F.avg_pool2d(f1, 2, stride=1)
-    f2 = F.relu(conv(p1, "conv2", dilation=2, padding=2) + p1)
-    # a 2x2 window at dilation 2 (avg_pool2d has no window dilation): the
-    # sum of four views shifted by 0 and 2 rows and columns
-    p2 = (f2[..., :-2, :-2] + f2[..., :-2, 2:] + f2[..., 2:, :-2]
-          + f2[..., 2:, 2:]) / 4
+def _dilated_pool(f2: torch.Tensor) -> torch.Tensor:
+    """A 2x2 window at dilation 2 (avg_pool2d has no window dilation): the
+    sum of four views shifted by 0 and 2 rows and columns."""
+    return (f2[..., :-2, :-2] + f2[..., :-2, 2:] + f2[..., 2:, :-2]
+            + f2[..., 2:, 2:]) / 4
+
+
+def _fold(p: dict, p2: torch.Tensor, spectra: torch.Tensor, rows: int,
+          cols: int, g: int) -> torch.Tensor:
+    """(rows*cols, classes) logits from the pooled map ``p2`` (its row 0
+    the first output row's) and those pixels' spectra: each pixel's
+    (w/4)^2 x 64 spatial flatten is (w/4)^2 shifted views of ``p2`` folded
+    into the classifier."""
     p2 = p2[0].permute(1, 2, 0)                          # (H', W', 64)
-
     wk = p["classifier.weight"]          # (classes, spatial + 1024)
-    logits_sp = torch.zeros(rows, cols, wk.shape[0], device=padded.device)
+    logits_sp = torch.zeros(rows, cols, wk.shape[0], device=p2.device)
     for a in range(g):                   # (H, W, C) order of the flatten
         for b in range(g):
             blk = wk[:, (a * g + b) * 64:(a * g + b + 1) * 64]
@@ -132,6 +135,91 @@ def _dense_logits(params: dict, padded: torch.Tensor, spectra: torch.Tensor,
     logits_spec = y @ wk[:, 64 * g * g:].T
     return (logits_sp.reshape(rows * cols, -1) + logits_spec
             + p["classifier.bias"])
+
+
+def _dense_logits(params: dict, padded: torch.Tensor, spectra: torch.Tensor,
+                  rows: int, cols: int, patch_size: int) -> torch.Tensor:
+    p = {k: v.to(padded.device, torch.float32) for k, v in params.items()}
+    cube = padded.float().permute(2, 0, 1)[None]         # (1, C, H, W)
+    f0 = _conv(p, cube, "conv0")
+    f1 = F.relu(_conv(p, f0, "conv1", padding=1) + f0)
+    p1 = F.avg_pool2d(f1, 2, stride=1)
+    f2 = F.relu(_conv(p, p1, "conv2", dilation=2, padding=2) + p1)
+    return _fold(p, _dilated_pool(f2), spectra, rows, cols, patch_size // 4)
+
+
+def strip_rows(rows: int, ranks: int, rank: int) -> tuple[int, int]:
+    """(r0, r1): rank ``rank``'s contiguous strip of ``rows`` scene rows
+    cut into ``ranks`` strips as even as the count allows (610 rows on 3
+    ranks: 203, 203, 204)."""
+    return rank * rows // ranks, (rank + 1) * rows // ranks
+
+
+def dense_strip_logits(params: Mapping, scene: PreparedScene, r0: int,
+                       r1: int) -> torch.Tensor:
+    """((r1 - r0) * cols, classes) f32 logits of scene rows ``r0:r1``: the
+    arithmetic of :func:`dense_scene_logits` over the rows of the padded
+    cube that the strip and the conv stack's halo need
+    (:func:`_dense_strip_logits`); those rows of the whole pass within
+    rounding (the convolutions sum over other shapes)."""
+    if scene.patch_size % 4 != 0:
+        raise ValueError("dense eval needs patch_size % 4 == 0 "
+                         f"(got {scene.patch_size})")
+    if not 0 <= r0 <= r1 <= scene.rows:
+        raise ValueError(f"strip {r0}:{r1} outside the scene's "
+                         f"{scene.rows} rows")
+    with compute_precision("float32"):
+        return _dense_strip_logits(_dense_params_view(params),
+                                   scene.padded_pca, scene.spectra,
+                                   scene.cols, scene.patch_size, r0, r1)
+
+
+def _rows_window(x: torch.Tensor, have_lo: int, lo: int, hi: int,
+                 n: int) -> torch.Tensor:
+    """Rows ``lo:hi`` (dim -2) of a map of ``n`` rows of which ``x`` holds
+    rows ``have_lo:``, with the rows outside ``[0, n)`` zero: the
+    convolution's own zero padding at the map's edges, and only there."""
+    a, b = max(lo, 0), min(hi, n)
+    return F.pad(x[..., a - have_lo:b - have_lo, :], (0, 0, a - lo, hi - b))
+
+
+def _dense_strip_logits(params: dict, padded: torch.Tensor,
+                        spectra: torch.Tensor, cols: int, patch_size: int,
+                        r0: int, r1: int) -> torch.Tensor:
+    """Scene rows ``r0:r1`` of the dense pass.  The halo, with the padded
+    cube's H = rows + w rows and g = w / 4: f0 and f1 have H rows, p1 and
+    f2 H - 1, p2 H - 3.
+
+    - logit row i reads p2 rows i + 4a for a < g: rows [r0, r1 + w - 4);
+    - p2 row j (the pool at dilation 2) reads f2 rows j and j + 2:
+      [r0, r1 + w - 2);
+    - f2 row k (conv2, 3x3 at dilation 2, zero-padded by 2) reads p1 rows
+      k - 2 to k + 2: [r0 - 2, r1 + w);
+    - p1 row m (the 2x2 pool) reads f1 rows m and m + 1:
+      [r0 - 2, r1 + w + 1);
+    - f1 row n (conv1, 3x3 zero-padded by 1) reads f0 rows n - 1 to n + 1,
+      and f0 (conv0, 1x1) the cube's same rows: [r0 - 3, r1 + w + 2).
+
+    So a strip of S rows reads S + w + 5 cube rows (fewer at the scene's
+    edges).  The convolutions take zeros past the maps' true edges only:
+    f0 is padded with zero rows where its window passes them (conv1's
+    padding), p1's rows outside [0, H - 1) are zeroed (conv2's), and both
+    convolutions pad the columns alone; rows of f1 past its edges are
+    computed but never read.  The crops keep the rows each next stage
+    reads."""
+    p = {k: v.to(padded.device, torch.float32) for k, v in params.items()}
+    g = patch_size // 4
+    h = padded.shape[0]
+    lo, hi = r0 - 3, r1 + patch_size + 2                 # f0's rows
+    cube = padded[max(lo, 0):min(hi, h)].float().permute(2, 0, 1)[None]
+    f0 = _rows_window(_conv(p, cube, "conv0"), max(lo, 0), lo, hi, h)
+    f1 = F.relu(_conv(p, f0, "conv1", padding=(0, 1)) + f0[..., 1:-1, :])
+    p1 = _rows_window(F.avg_pool2d(f1, 2, stride=1), lo + 1, r0 - 2,
+                      r1 + patch_size, h - 1)
+    f2 = F.relu(_conv(p, p1, "conv2", dilation=2, padding=(0, 2))
+                + p1[..., 2:-2, :])                      # rows r0:
+    return _fold(p, _dilated_pool(f2), spectra[r0 * cols:r1 * cols],
+                 r1 - r0, cols, g)
 
 
 class ScenePredictor:
@@ -146,7 +234,8 @@ class ScenePredictor:
     ``params``, no gather and no ``model``).  ``spectra=False`` is for a
     model of patches only (a zoo "patch" model): its ``x`` is None and no
     spectra are gathered.  ``mesh``: each rank maps its strip of the tiles
-    and every rank returns the whole map (the module docstring).
+    (dense: of the scene's rows) and every rank returns the whole map (the
+    module docstring).
     """
 
     def __init__(self, model: Callable | None, *, patch_size: int,
@@ -179,9 +268,16 @@ class ScenePredictor:
     @torch.inference_mode()
     def __call__(self, scene: PreparedScene) -> np.ndarray:
         """Returns 0-based predicted class ids for all rows*cols pixels."""
+        mesh = self.mesh if is_distributed(self.mesh) else None
         if self.gather == "dense":
-            logits = dense_scene_logits(self.params, scene)
-            return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            if mesh is None:
+                logits = dense_scene_logits(self.params, scene)
+                return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            r0, r1 = strip_rows(scene.rows, mesh.size, mesh.rank)
+            preds = dense_strip_logits(self.params, scene, r0, r1).argmax(
+                dim=-1).to(torch.int32)
+            return gather_rows(preds, mesh, r0 * scene.cols,
+                               scene.num_pixels).cpu().numpy()
         device = scene.device
         mode = resolve_gather(self.gather, device)
         gather = self._gather_fn(mode)
@@ -191,7 +287,6 @@ class ScenePredictor:
 
         k = scene.num_pixels
         tile = self.tile
-        mesh = self.mesh if is_distributed(self.mesh) else None
         ranks = 1 if mesh is None else mesh.size
         padded_k = pad_to_multiple(k, tile * ranks)
         lo, hi = (0, padded_k) if mesh is None else mesh.rows(padded_k)

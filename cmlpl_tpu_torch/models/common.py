@@ -14,11 +14,14 @@ them with the initialisers below, not from torch's defaults.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cmlpl_tpu_torch.core.mesh import all_reduce_sum, batch_shard
 from cmlpl_tpu_torch.core.rng import uniform
 from cmlpl_tpu_torch.device import compute_precision
 
@@ -46,12 +49,21 @@ def dropout(z: torch.Tensor, rate: float, generator: torch.Generator | None,
             keep: torch.Tensor | None = None) -> torch.Tensor:
     """Flax's ``nn.Dropout``: the elements of ``keep`` (drawn from
     ``generator`` by :func:`keep_mask` when None) scaled by
-    ``1 / (1 - rate)``, the others 0."""
+    ``1 / (1 - rate)``, the others 0.  Inside a sharded call
+    (``core/mesh.batch_shard``) the mask is drawn at the global batch's
+    shape and cut to this rank's rows, so the generator advances as one
+    process's does and the rows get that process's mask."""
     p = 1.0 - rate
     if p <= 0.0:
         return torch.zeros_like(z)
     if keep is None:
-        keep = keep_mask(z.shape, rate, generator, z.device)
+        shard = batch_shard()
+        if shard is None:
+            keep = keep_mask(z.shape, rate, generator, z.device)
+        else:
+            keep = keep_mask((shard.total,) + tuple(z.shape[1:]), rate,
+                             generator, z.device)
+            keep = keep[shard.lo:shard.lo + z.shape[0]]
     return torch.where(keep, z / p, torch.zeros((), dtype=z.dtype,
                                                 device=z.device))
 
@@ -82,7 +94,18 @@ class BatchNorm(nn.Module):
     computes the variance as E[x²] − E[x]², clipped at 0; this takes
     ``torch.var_mean``'s, which differs from it by rounding.  Eval mode
     uses the running statistics.  Flax's defaults: momentum 0.99, eps
-    1e-5."""
+    1e-5.
+
+    Inside a sharded call (``core/mesh.batch_shard``, the batch split over
+    ranks) train mode normalises by the **global** batch's mean and biased
+    variance, each a sum over the ranks (``core/mesh.all_reduce_sum``,
+    differentiable: its backward sums the ranks' gradients): Σx, then
+    Σ(x − mean)², two passes as ``torch.var_mean`` takes them.  Flax's
+    one-pass E[x²] − E[x]² cancels where a channel's mean dwarfs its
+    spread (SSRN's residual blocks at PaviaU width: its step-1 gradients
+    parted from the two-pass ones by 1.6e-3 of a tensor's largest).  Every
+    rank updates its running statistics from the same sums, so the
+    replicas stay equal."""
 
     def __init__(self, num_features: int, momentum: float = 0.99,
                  eps: float = 1e-5):
@@ -98,14 +121,28 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        dims = [0] + list(range(2, x.dim()))
+        shard = batch_shard()
+        if shard is None:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=dims, correction=0)
+                self._update_running(mean, var)
+            return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                                0.0, self.eps)
+        n = shard.total * math.prod(x.shape[2:])
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mean = all_reduce_sum(x.sum(dims), shard.mesh) / n
+        xc = x - mean.view(shape)
+        var = all_reduce_sum((xc * xc).sum(dims), shard.mesh) / n
         with torch.no_grad():
-            dims = [0] + list(range(2, x.dim()))
-            var, mean = torch.var_mean(x, dim=dims, correction=0)
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True,
-                            0.0, self.eps)
+            self._update_running(mean, var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return xc * mul.view(shape) + self.bias.view(shape)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
 
 class PReLU(nn.Module):

@@ -69,8 +69,9 @@ import torch
 from torch.func import functional_call, vmap
 
 from cmlpl_tpu_torch.core.mesh import (Mesh, all_gather_rows,
-                                       all_reduce_grads, is_multiprocess,
-                                       place_state, shard_rows)
+                                       all_reduce_grads, is_distributed,
+                                       is_multiprocess, place_state,
+                                       shard_rows, sharded_batch)
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision, resolve_device
 from cmlpl_tpu_torch.models.basenet import BaseNet2, joint_dim, keep_mask
@@ -124,7 +125,10 @@ class Apply:
     features), the rank runs the module on its rows of them
     (``core/mesh.shard_rows``) and the outputs come back gathered into
     global order (``core/mesh.all_gather_rows``), so the losses after the
-    call are the one-device losses on every rank."""
+    call are the one-device losses on every rank.  The module runs inside
+    ``core/mesh.sharded_batch`` of the first argument's rows, so its
+    BatchNorms take the global batch's statistics and its dropouts the
+    global batch's masks."""
 
     def __init__(self, modules: torch.nn.ModuleDict, params=None,
                  mesh: Mesh | None = None):
@@ -140,13 +144,18 @@ class Apply:
     def __call__(self, path: str, *args, **kwargs):
         module = self.modules.get_submodule(path)
         mesh = self.mesh
+        lo = total = 0
+        if is_distributed(mesh):
+            total = args[0].shape[0]
+            lo = mesh.rows(total)[0]
         args = [shard_rows(a, mesh) for a in args]
         kwargs = {k: shard_rows(v, mesh) for k, v in kwargs.items()}
-        if self.params is None:
-            out = module(*args, **kwargs)
-        else:
-            out = functional_call(module, self._params(path), tuple(args),
-                                  kwargs)
+        with sharded_batch(mesh, lo, total):
+            if self.params is None:
+                out = module(*args, **kwargs)
+            else:
+                out = functional_call(module, self._params(path),
+                                      tuple(args), kwargs)
         if isinstance(out, tuple):
             return tuple(all_gather_rows(o, mesh) for o in out)
         return all_gather_rows(out, mesh)

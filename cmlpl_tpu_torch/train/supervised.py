@@ -14,25 +14,40 @@ from the state's ``torch.Generator``, in that order.
 
 The batches are ``_schedule``'s, a copy of the JAX trainer's (numpy
 ``default_rng(seed)``), so both packages train on the same batches.
+
+Over a ``mesh`` (``core/mesh.create_mesh``; the JAX trainer's GSPMD step
+with the batch on "data", ``cmlpl_tpu/train/supervised.py:221-239``)
+every rank gathers and augments the whole batch from its copy of the one
+generator, the model runs on the rank's rows (``train/driver.Apply``:
+its BatchNorms normalise by the global batch's statistics and its
+dropouts draw the global batch's masks), the logits come back gathered,
+so the loss, accuracy and history are global on every rank, and one
+all-reduce sums the gradients before Adam.  The running statistics, the
+Adam state and the EMA teacher stay replicated, bitwise.  The batch is
+rounded to a multiple of the ranks (``schedule``).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from cmlpl_tpu_torch.core.mesh import Mesh, all_reduce_grads, place_state
 from cmlpl_tpu_torch.data.augment import (radiation_noise, random_flip,
                                           random_rot90)
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision, resolve_device
 from cmlpl_tpu_torch.models.zoo import ZOO, build_model, weight_ema
 from cmlpl_tpu_torch.objectives.supervised import cross_entropy
-from cmlpl_tpu_torch.ops.patch_gather import (make_train_gather,
+from cmlpl_tpu_torch.ops.patch_gather import (check_gather_mesh,
+                                              make_train_gather,
                                               resolve_train_gather)
+from cmlpl_tpu_torch.train.driver import Apply
 from cmlpl_tpu_torch.weights import (init_zoo_params, state_dict_from_jax,
                                      supervised_state_from_jax,
                                      supervised_state_to_jax)
@@ -56,15 +71,58 @@ def _tensors(model: torch.nn.Module) -> dict:
     return dict(model.named_parameters()) | dict(model.named_buffers())
 
 
+def schedule(train_idx, labels, batch_size, num_epochs, epoch_samples,
+             seed, data: int = 1):
+    """Pre-draw every epoch's shuffled batches -> (T, B) arrays, as the
+    JAX trainer's ``_schedule`` (``cmlpl_tpu/train/supervised.py:
+    256-285``): the batch rounded down to a multiple of ``data`` (the
+    ranks; at least ``data``), the split tiled when it is smaller (45
+    labels on 2 ranks: batches of 44)."""
+    rng = np.random.default_rng(seed)
+    idx = np.asarray(train_idx)
+    all_li, all_ly = [], []
+    for _ in range(num_epochs):
+        perm = rng.permutation(idx)
+        if epoch_samples:
+            reps = -(-epoch_samples // len(perm))
+            perm = np.tile(perm, reps)[:epoch_samples]
+        bs = min(batch_size, len(perm))
+        bs = max((bs // data) * data, data)
+        if len(perm) < bs:
+            perm = np.tile(perm, -(-bs // len(perm)))[:bs]
+        n_batches = max(len(perm) // bs, 1)
+        for b in range(n_batches):
+            li = perm[b * bs:(b + 1) * bs]
+            if len(li) < bs:
+                break
+            all_li.append(li.astype(np.int32))
+            all_ly.append((labels[li] - 1).astype(np.int32))
+    return np.stack(all_li), np.stack(all_ly)
+
+
+def steps_per_epoch(n_train: int, batch_size: int,
+                    epoch_samples: Optional[int] = None,
+                    data: int = 1) -> int:
+    """Batches per epoch under :func:`schedule`'s rounding (for resume
+    bookkeeping: epoch = state.step // steps_per_epoch)."""
+    n = epoch_samples if epoch_samples else n_train
+    bs = min(batch_size, n)
+    bs = max((bs // data) * data, data)
+    return max(max(n, bs) // bs, 1)
+
+
 class SupervisedTrainer:
     """CE training of the zoo model ``name`` for the dataset ``spec`` on
-    ``device`` (the CUDA card unless the caller asks for the CPU).
-    ``n_pc`` is resolved (all bands given as their count)."""
+    ``device`` (the CUDA card unless the caller asks for the CPU; default:
+    the mesh's), data parallel over ``mesh`` (the module docstring).
+    ``n_pc`` is resolved (all bands given as their count).  "pallas" and
+    "pallas_bf16" asked for by name are refused over more than one rank,
+    as in the JAX package."""
 
     def __init__(self, name: str, spec, *, lr: float = 5e-4,
                  patch_size: int, n_pc: int, augment: bool = False,
                  gather_impl: str = "auto", ema_alpha: float = 0.0,
-                 device=None):
+                 device=None, mesh: Mesh | None = None):
         self.name = name.lower()
         self.entry = ZOO[self.name]
         self.spec = spec
@@ -73,10 +131,14 @@ class SupervisedTrainer:
         self.n_pc = n_pc
         self.augment = augment
         self.ema_alpha = float(ema_alpha)
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
+        self.mesh = mesh
+        self.data = mesh.size if mesh is not None else 1
+        check_gather_mesh(gather_impl, mesh)
         # a labeled-only epoch has no pre-gathered pool (the labeled set
         # is ~45 pixels): "auto" is the plain gather on the CPU, kernel 1
-        # each step on the card
+        # each step on the card, on every rank (each gathers its batch)
         self.gather_impl = resolve_train_gather(
             gather_impl, self.device, num_unlabel=0, patch_size=patch_size,
             n_pc=n_pc, pool_supported=False)
@@ -107,12 +169,18 @@ class SupervisedTrainer:
         """A fresh state from ``seed`` (an int or a sequence of ints, as
         ``numpy.random.SeedSequence`` takes): weights from the JAX model's
         initialisers' distributions (``weights.init_zoo_params``) and the
-        run's generator."""
+        run's generator; over a mesh, rank 0's on every rank
+        (:meth:`place`)."""
         k_init, k_run = np.random.SeedSequence(seed).spawn(2)
         v = init_zoo_params(self.name, k_init, spec=self.spec,
                             n_pc=self.n_pc, patch_size=self.patch_size)
-        return self.new_state(v["params"], v["batch_stats"],
-                              int(k_run.generate_state(1)[0]))
+        return self.place(self.new_state(v["params"], v["batch_stats"],
+                                         int(k_run.generate_state(1)[0])))
+
+    def place(self, state: SupervisedState) -> SupervisedState:
+        """``state`` as rank 0 holds it, on every rank of the mesh
+        (``core/mesh.place_state``); the identity on one process."""
+        return place_state(self.mesh, self, state)
 
     def state_to_jax(self, state: SupervisedState) -> dict:
         return supervised_state_to_jax(state)
@@ -122,6 +190,8 @@ class SupervisedTrainer:
 
     # -- model plumbing ---------------------------------------------------
     def _apply(self, model, xp, x, generator=None):
+        """``model`` (a module, or any callable of its arguments) on the
+        entry's inputs: the patch and spectrum, or the patch alone."""
         if self.entry.inputs == "dual":
             return model(xp, x, generator=generator)
         return model(xp, generator=generator)
@@ -165,11 +235,14 @@ class SupervisedTrainer:
         g = state.generator
         if self.augment:
             xp = radiation_noise(g, random_rot90(g, random_flip(g, xp)))
-        out = self._apply(state.model, xp, x, g)
+        apply = Apply(torch.nn.ModuleDict({"model": state.model}),
+                      mesh=self.mesh)
+        out = self._apply(functools.partial(apply, "model"), xp, x, g)
         logits = out[0] if self.entry.returns_feature else out
         loss = cross_entropy(logits, y)
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads(state.model.parameters(), self.mesh)
         state.opt.step()
         state.step += 1
         if state.ema is not None:
@@ -208,39 +281,20 @@ class SupervisedTrainer:
                                   np.asarray(lab_y)[None])
         return state, {k: v[0] for k, v in m.items()}
 
-    # -- schedule (a copy of the JAX trainer's, one device) -----------------
-    @staticmethod
-    def _schedule(train_idx, labels, batch_size, num_epochs, epoch_samples,
-                  seed):
-        """Pre-draw every epoch's shuffled batches -> (T, B) arrays."""
-        rng = np.random.default_rng(seed)
-        idx = np.asarray(train_idx)
-        all_li, all_ly = [], []
-        for _ in range(num_epochs):
-            perm = rng.permutation(idx)
-            if epoch_samples:
-                reps = -(-epoch_samples // len(perm))
-                perm = np.tile(perm, reps)[:epoch_samples]
-            bs = max(min(batch_size, len(perm)), 1)
-            if len(perm) < bs:
-                perm = np.tile(perm, -(-bs // len(perm)))[:bs]
-            n_batches = max(len(perm) // bs, 1)
-            for b in range(n_batches):
-                li = perm[b * bs:(b + 1) * bs]
-                if len(li) < bs:
-                    break
-                all_li.append(li.astype(np.int32))
-                all_ly.append((labels[li] - 1).astype(np.int32))
-        return np.stack(all_li), np.stack(all_ly)
+    # -- schedule (a copy of the JAX trainer's) ----------------------------
+    def _schedule(self, train_idx, labels, batch_size, num_epochs,
+                  epoch_samples, seed):
+        """Pre-draw every epoch's shuffled batches -> (T, B) arrays, the
+        batch a multiple of the ranks (:func:`schedule`)."""
+        return schedule(train_idx, labels, batch_size, num_epochs,
+                        epoch_samples, seed, self.data)
 
-    @staticmethod
-    def steps_per_epoch(n_train: int, batch_size: int,
+    def steps_per_epoch(self, n_train: int, batch_size: int,
                         epoch_samples: Optional[int] = None) -> int:
-        """Batches per epoch under ``_schedule`` (for resume bookkeeping:
-        epoch = state.step // steps_per_epoch)."""
-        n = epoch_samples if epoch_samples else n_train
-        bs = max(min(batch_size, n), 1)
-        return max(max(n, bs) // bs, 1)
+        """Batches per epoch under :meth:`_schedule`
+        (:func:`steps_per_epoch`)."""
+        return steps_per_epoch(n_train, batch_size, epoch_samples,
+                               self.data)
 
     def fit(self, state: SupervisedState, scene: PreparedScene,
             train_idx: np.ndarray, labels: np.ndarray, *,

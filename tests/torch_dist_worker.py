@@ -214,8 +214,10 @@ def task_cli(mesh, runs, cwd):
         out["printed"].append(buf.getvalue())
         out["oa"].append([a.oa for a in (
             (accs,) if isinstance(accs, Accuracy) else accs)])
+        if module != "train":
+            continue
         args = train_parser().parse_args(argv + ["--resume"])
-        if args.checkpoint_dir and module == "train":
+        if args.checkpoint_dir:
             trainer = CMLPLTrainer(build_config(args, get_dataset(0)),
                                    device="cpu", mesh=mesh)
             with contextlib.redirect_stdout(io.StringIO()):
@@ -223,6 +225,157 @@ def task_cli(mesh, runs, cwd):
                                             trainer.init_state(0), 1)
             out["resumed"].append(state_tensors(trainer, state))
     return out
+
+
+# -- the supervised trainer and the zoo ------------------------------------ #
+#: the zoo's small size (``tests/test_torch_port_zoo.py``, 16 bands, 4
+#: classes) on the 16x14 scene of ``tests/test_torch_port_supervised.py``
+#: (3 labels a class: 12), batches of 6: 3 rows a rank at two ranks
+ZOO_SHAPES = {"basenet1": (8, 5), "basenet2": (8, 6),
+              "basenet2_zoo": (8, 6), "ssftt": (7, 5), "dbda": (5, 16),
+              "dbda_feature": (5, 16), "ssrn": (7, 16), "fdssc": (5, 16),
+              "msvit": (8, 6)}
+ZOO_BANDS, ZOO_CLASSES, ZOO_BATCH = 16, 4, 6
+
+
+def zoo_cube():
+    """The (16, 14, 16) cube and ground truth of
+    ``tests/test_torch_port_supervised.py``'s scene."""
+    rng = np.random.default_rng(0)
+    gt = rng.integers(1, ZOO_CLASSES + 1, size=(16, 14))
+    cube = (rng.normal(size=(ZOO_CLASSES + 1, ZOO_BANDS))[gt] * 2
+            + rng.normal(size=(16, 14, ZOO_BANDS))).astype(np.float32)
+    return cube, gt
+
+
+def zoo_setup(name, mesh, **kw):
+    """(trainer of ``name`` on the CPU over ``mesh``, its scene at the
+    entry's small (w, n_pc), the train ids)."""
+    import dataclasses
+
+    from cmlpl_tpu_torch.registry import get_dataset
+    from cmlpl_tpu_torch.train.supervised import SupervisedTrainer
+
+    w, n_pc = ZOO_SHAPES[name]
+    spec = dataclasses.replace(get_dataset(0), num_classes=ZOO_CLASSES,
+                               num_bands=ZOO_BANDS)
+    cube, gt = zoo_cube()
+    scene = prepare_scene(spec, cube=cube, gt=gt, patch_size=w, n_pc=n_pc,
+                          device="cpu")
+    trainer = SupervisedTrainer(name, spec, patch_size=w, n_pc=n_pc,
+                                device="cpu", mesh=mesh, **kw)
+    return trainer, scene, generate_splits(scene.labels, num_label=3).train
+
+
+def zoo_tensors(state) -> dict:
+    """Every tensor of a supervised state by name: the model's params and
+    BN statistics, the EMA teacher's, the Adam moments and steps, the
+    generator's state and the step.  An Adam entry that never stepped is
+    left out: a placed state (``place_state`` rebuilds it from the JAX
+    tree) carries zero moments for a param that never has a gradient
+    (BaseNet2Zoo's feature head), where a fresh one has none."""
+    out = {f"model/{k}": v.detach().clone()
+           for k, v in state.model.state_dict().items()}
+    if state.ema is not None:
+        out.update({f"ema/{k}": v.detach().clone()
+                    for k, v in state.ema.state_dict().items()})
+    for k, p in state.model.named_parameters():
+        st = state.opt.state.get(p, {})
+        if st and float(st["step"]) > 0:
+            out.update({f"opt/{k}/{m}": v.clone() for m, v in st.items()})
+    out["generator"] = state.generator.get_state()
+    out["step"] = torch.tensor(state.step)
+    return out
+
+
+def task_zoo(mesh, name, steps=3, augment=True, ema_alpha=0.9):
+    """``steps`` supervised steps of zoo model ``name`` from
+    ``init_state(0)``, augmentations and dropout on, an EMA teacher: each
+    step's metrics, the step-1 gradients (summed over the ranks), the
+    state after step 1 and after the last."""
+    trainer, scene, train = zoo_setup(name, mesh, augment=augment,
+                                      ema_alpha=ema_alpha)
+    state = trainer.init_state(0)
+    li, ly = trainer._schedule(train, scene.labels, ZOO_BATCH, 2, None, 3)
+    out = {"metrics": [], "batch": li.shape[1]}
+    for i in range(steps):
+        state, m = trainer.train_step(state, scene, li[i], ly[i])
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            out["grads"] = {k: p.grad.clone() for k, p in
+                            state.model.named_parameters()
+                            if p.grad is not None}
+            out["after1"] = zoo_tensors(state)
+    out["final"] = zoo_tensors(state)
+    return out
+
+
+def task_zoo_from_tree(mesh, name, tree_npz, batches_npz, steps):
+    """Supervised steps of ``name`` (no augmentation, no EMA) from a
+    JAX-layout state (``tree_npz``) on the batches of ``batches_npz``
+    (li, ly stacked): each step's metrics, the step-1 gradients and the
+    final JAX-layout state."""
+    from cmlpl_tpu_torch.weights import (StateTree, load_params_npz,
+                                         supervised_state_to_jax)
+
+    trainer, scene, _ = zoo_setup(name, mesh)
+    state = trainer.place(trainer.state_from_jax(
+        StateTree(load_params_npz(tree_npz))))
+    b = np.load(batches_npz)
+    out = {"metrics": []}
+    for i in range(steps):
+        state, m = trainer.train_step(state, scene, b["li"][i], b["ly"][i])
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            out["grads"] = {k: p.grad.clone() for k, p in
+                            state.model.named_parameters()
+                            if p.grad is not None}
+    out["tree"] = supervised_state_to_jax(state)
+    return out
+
+
+def task_dense(mesh, seeds, rows=61, cols=23):
+    """The dense map over the ranks (``ScenePredictor(gather="dense",
+    mesh=)``) of BaseNet2 and CCT weights (``seeds``: the init seeds) on a
+    ``rows`` x ``cols`` crop of the synthetic scene, by kind."""
+    from cmlpl_tpu_torch.eval.inference import ScenePredictor
+    from cmlpl_tpu_torch.weights import (init_basenet2_params,
+                                         init_cct_params,
+                                         state_dict_from_jax)
+
+    scene = dense_scene(rows, cols)
+    shape = dict(n_pc=N_PC, num_features=103, num_classes=9, patch_size=W)
+    out = {}
+    for kind, init in (("basenet2", init_basenet2_params),
+                       ("cct", init_cct_params)):
+        params = state_dict_from_jax(init(seeds[kind], **shape))
+        out[kind] = ScenePredictor(None, patch_size=W, cols=scene.cols,
+                                   gather="dense", params=params,
+                                   mesh=mesh)(scene)
+    return out
+
+
+def dense_scene(rows=61, cols=23):
+    """A ``rows`` x ``cols`` crop of the synthetic scene (61 rows divide
+    over neither 2 nor 3 ranks)."""
+    cube, gt = synthetic_scene(0)
+    return prepare_scene(0, cube=cube[:rows, :cols], gt=gt[:rows, :cols],
+                         patch_size=W, n_pc=N_PC, device="cpu")
+
+
+def task_raises(mesh, module, argv, cwd):
+    """``main(argv)`` of CLI ``module`` in ``cwd``, which must raise: the
+    exception's type and message."""
+    import importlib
+
+    os.chdir(cwd)
+    main = importlib.import_module(f"cmlpl_tpu_torch.cli.{module}").main
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(argv)
+    except Exception as e:  # noqa: BLE001 - reported to the test
+        return {"type": type(e).__name__, "msg": str(e)}
+    return {"type": None, "msg": ""}
 
 
 def task_init(mesh):
@@ -239,7 +392,9 @@ def task_many(mesh, calls):
 
 TASKS = {"gather": task_gather, "steps": task_steps,
          "from_tree": task_from_tree, "map": task_map, "fused": task_fused,
-         "cli": task_cli, "init": task_init, "many": task_many}
+         "cli": task_cli, "init": task_init, "many": task_many,
+         "zoo": task_zoo, "zoo_from_tree": task_zoo_from_tree,
+         "dense": task_dense, "raises": task_raises}
 
 
 # -- the parent's side ------------------------------------------------------ #
