@@ -15,12 +15,12 @@ B = 128 a step); three steps of each trainer (CMLPL, CPS, CCT) on the
 card against the CPU; ``cli.train`` with the default 20-epoch schedule and
 its pool gather (its net B weights then served), one epoch with each
 per-step kernel gather; ``cli.train_cps`` and ``cli.train_cct`` with the
-default schedule; and the OA of 12 seeds of each CLI against the
-reference's (``docs/{cmlpl,cps,cct}_ref_seeds_r4.json``).  Then bf16
+default schedule; and the OA of AB_SEEDS (6) of the reference's 12 seeds
+of each CLI against its (``docs/{cmlpl,cps,cct}_ref_seeds_r4.json``).  Then bf16
 training: ``cli.train --compute_dtype bfloat16`` with the default schedule
 (its pool by the bf16 kernel), one epoch each of ``cli.train_cps`` and
 ``cli.train_cct`` in bf16, one bf16 step of each trainer on the card
-against the CPU, and the 12-seed OA of bf16 ``cli.train``; a 4-epoch
+against the CPU, and the 6-seed OA of bf16 ``cli.train``; a 4-epoch
 ``cli.train`` with a checkpoint an epoch, a fault injected after epoch 2
 and one restart; one epoch with each extra objective and with the
 augmentations, and a stacked against an unstacked CMLPL step.  Then the
@@ -172,6 +172,10 @@ ILL_CONDITIONED_MAX_SHARE = 1e-4
 # order from run to run, so a correct port's seeds wander; a fault in the
 # algorithm moves OA by far more
 AB_MAX_DIFF = 3.0
+# the A/B's seeds, the first of the reference's 12 (1088..1099): half of
+# them, a depth cut for time (at 12, with the ("data", "model") mesh's
+# phase, the whole smoke took 1,017-1,224 s, the A/B phases 376-489 s)
+AB_SEEDS = 6
 # bf16 card vs CPU, 1 step: cuDNN's and oneDNN's bf16 layers round their
 # outputs to an 8-bit mantissa (2**-8 = 3.9e-3 of their size) at other
 # points, so the losses, batch means of such outputs, agree to a few of
@@ -1332,9 +1336,10 @@ def ab_inputs(tmp):
 def phase_ab(ab, scene_npz, algo: str, extra=(), phase=None):
     """OA of ``algo``'s CLI (with the flags ``extra``) vs the reference's
     own PyTorch code on the hard synthetic scene
-    (``docs/<algo>_ref_seeds_r4.json``): seeds 1088..1099, the oracle's
-    scene, splits and flags (``scripts/reference_oracle.py:297-317``: the
-    same for the three CLIs).  CCT has one net, so its ``oa_b`` is empty;
+    (``docs/<algo>_ref_seeds_r4.json``, seeds 1088..1099): ours at the
+    first AB_SEEDS of them, the oracle's scene, splits and flags
+    (``scripts/reference_oracle.py:297-317``: the same for the three
+    CLIs).  CCT has one net, so its ``oa_b`` is empty;
     its reference spread is wide (sd 3.87), so its gate is the verdict's
     two standard errors where that is above AB_MAX_DIFF."""
     from cmlpl_tpu_torch.cli import train, train_cct, train_cps
@@ -1344,7 +1349,7 @@ def phase_ab(ab, scene_npz, algo: str, extra=(), phase=None):
     with open(os.path.join(ROOT, "docs", f"{algo}_ref_seeds_r4.json")) as f:
         ref = json.load(f)[algo]["reference"]
     ours = {"oa_a": [], "oa_b": [], "sec_per_seed": []}
-    for s in range(len(ref["oa_a"])):
+    for s in range(AB_SEEDS):
         t0 = time.perf_counter()
         result, _, _ = run_cli(main_fn, [
             "--dataID", "0", "--n_PC", "60", "--w", "20",
@@ -3500,16 +3505,34 @@ def mh_trainer(algo: str, mesh=None, **cfg):
     return cls(CMLPLConfig(**cfg), device=torch.device("cuda"), mesh=mesh)
 
 
-def mh_step(trainer, tscene, batch):
+def whole_tensors(module, tensors: dict) -> dict:
+    """name -> tensor of ``module``'s parameters (their gradients or
+    themselves) on the host, the model axis's shards gathered whole when
+    the module holds them (a collective of its model ranks)."""
+    from cmlpl_tpu_torch.core.mesh import tp_gather_tree, tp_of
+    from cmlpl_tpu_torch.weights import params_to_jax, state_dict_from_jax
+
+    tp = tp_of(module)
+    if tp is None:
+        return {n: t.detach().cpu().clone() for n, t in tensors.items()}
+    return state_dict_from_jax(tp_gather_tree(params_to_jax(tensors), tp))
+
+
+def mh_step(trainer, tscene, batch, with_state: bool = False):
     """One step of ``trainer`` from ``init_state(SEED)`` on ``batch`` (the
     default schedule's first): (its metrics, its step-1 gradients, on the
-    host; over a mesh the summed gradient)."""
+    host; over a mesh the summed gradient, split ones gathered whole), and
+    with ``with_state`` the state after it."""
     state = trainer.init_state(SEED)
     li, ly, ui = batch
     state, m = trainer.train_step(state, tscene, li, ly, ui, epoch=1)
-    return ({k: float(v) for k, v in m.items()},
-            [p.grad.detach().cpu().clone()
-             for p in trainer.named_params(state).values()])
+    grads = []
+    for mod in trainer._modules(state).values():
+        named = dict(mod.named_parameters())
+        whole = whole_tensors(mod, {n: p.grad for n, p in named.items()})
+        grads += [whole[n] for n in named]
+    out = {k: float(v) for k, v in m.items()}, grads
+    return (out, state) if with_state else out
 
 
 def hold_step(what: str, got, want, bf16: bool = False) -> dict:
@@ -3558,17 +3581,19 @@ def state_digest(trainer, state) -> str:
     return h.hexdigest()
 
 
-def timed_all_reduce_ms(numel: int, device, rounds: int = 20) -> float:
-    """Host ms of one ``all_reduce`` of ``numel`` f32 on the default group
-    (a step's flat gradient buffer), synchronised, after a warm-up."""
+def timed_all_reduce_ms(numel: int, device, rounds: int = 20,
+                        group=None) -> float:
+    """Host ms of one ``all_reduce`` of ``numel`` f32 on ``group`` (the
+    default group: a step's flat gradient buffer), synchronised, after a
+    warm-up."""
     import torch.distributed as dist
 
     buf = torch.ones(numel, device=device)
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=group)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(rounds):
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / rounds * 1e3
 
@@ -3605,12 +3630,14 @@ def zoo_mh_trainer(name, scene, mesh=None, **kw):
                              device=scene.device, mesh=mesh, **kw)
 
 
-def zoo_mh_step(name, scene, li, ly, mesh=None) -> tuple:
+def zoo_mh_step(name, scene, li, ly, mesh=None,
+                with_state: bool = False) -> tuple:
     """One supervised step of ``name`` from ``init_state(SEED)`` on the
     ids ``li``, dropout off (its layers' rates set to 0) and no
     augmentation: (param names, loss, step-1 gradients, params, BN
     statistics), on the host; over a mesh the summed gradient and the
-    replicated state."""
+    replicated state, split tensors gathered whole; with ``with_state``,
+    and (the trainer, the state after the step)."""
     from cmlpl_tpu_torch.models.common import Dropout
 
     trainer = zoo_mh_trainer(name, scene, mesh)
@@ -3619,12 +3646,15 @@ def zoo_mh_step(name, scene, li, ly, mesh=None) -> tuple:
         if isinstance(m, Dropout):
             m.rate = 0.0
     state, m = trainer.train_step(state, scene, li, ly)
-    names, params = zip(*state.model.named_parameters())
-    return (names, float(m["cls_loss"]),
-            [torch.zeros(p.shape) if p.grad is None else p.grad.cpu().clone()
-             for p in params],
-            [p.detach().cpu().clone() for p in params],
-            {k: v.cpu().clone() for k, v in state.model.named_buffers()})
+    named = dict(state.model.named_parameters())
+    grads = whole_tensors(state.model, {
+        n: torch.zeros_like(p) if p.grad is None else p.grad
+        for n, p in named.items()})
+    params = whole_tensors(state.model, named)
+    out = (tuple(named), float(m["cls_loss"]), [grads[n] for n in named],
+           [params[n] for n in named],
+           {k: v.cpu().clone() for k, v in state.model.named_buffers()})
+    return (out, (trainer, state)) if with_state else out
 
 
 def hold_zoo_step(name: str, got, want) -> dict:
@@ -4084,6 +4114,325 @@ def phase_multihost_shared_card(children) -> dict:
             "zoo_map": r0["zoo"]["cli"]["launches_map"][0]}
 
 
+#: the model axis of the 2-D mesh of four gloo ranks on one card (2 x 2)
+TP = 2
+#: the one-step cases on the 2-D mesh: trainer and config (noise and
+#: dropout off, pool gather), or a zoo model for the supervised trainer
+TP_STEPS = {"cmlpl": ("cmlpl", {}),
+            "cmlpl_bf16": ("cmlpl", {"compute_dtype": "bfloat16"}),
+            "cmlpl_memobank": ("cmlpl", {"extra_loss": "memobank"}),
+            "cps": ("cps", {}), "cct": ("cct", {})}
+TP_ZOO = ("basenet2", "basenet2_zoo", "basenet1", "ssrn")
+
+
+def tree_digest(tree) -> str:
+    """sha256 of a nested tree of arrays, by sorted path."""
+    h = hashlib.sha256()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node, key=str):
+                walk(node[k], f"{path}/{k}")
+            return
+        h.update(path.encode())
+        h.update(np.ascontiguousarray(np.asarray(node)).tobytes())
+
+    walk(tree, "")
+    return h.hexdigest()
+
+
+def tp_placement(trainer, state) -> dict:
+    """Where a state's split tensors lie on this rank: the shapes of each
+    module's ``feat_spe`` and ``classifier`` weights and their Adam
+    moments, of the queues' features, whether ``assert_tp_placed`` holds,
+    the digest of the rank's own tensors (its shards) and of the whole
+    state (gathered: every rank calls this)."""
+    from cmlpl_tpu_torch.core.mesh import assert_tp_placed, tp_of
+
+    mods = (trainer._modules(state) if hasattr(trainer, "_modules")
+            else {"model": state.model})
+    opts = (trainer._opts(state) if hasattr(trainer, "_opts")
+            else (state.opt,))
+    shapes = {}
+    for name, mod in mods.items():
+        for n, p in mod.named_parameters():
+            if n.endswith(("feat_spe.weight", "classifier.weight")):
+                moments = [tuple(o.state[p]["exp_avg"].shape) for o in opts
+                           if p in o.state]
+                shapes[f"{name}.{n}"] = [tuple(p.shape)] + moments
+    carry = trainer._carry(state) if hasattr(trainer, "_carry") else {}
+    for name, c in carry.items():
+        if name.startswith("queue"):
+            shapes[f"{name}.feats"] = [tuple(c.feats.shape)]
+    placed = True
+    for mod in mods.values():
+        tp = tp_of(mod)
+        if tp is None:
+            placed = False
+            continue
+        assert_tp_placed(mod, tp)
+    local = (state_digest(trainer, state) if hasattr(trainer, "_modules")
+             else zoo_digest(state))
+    return {"shapes": shapes, "placed": placed, "local_digest": local,
+            "whole_digest": tree_digest(trainer.state_to_jax(state))}
+
+
+def run_tp_shared_card_rank(tmp) -> dict:
+    """One of four gloo ranks on ``cuda:0`` as a ("data", "model") mesh of
+    2 x 2 (``create_mesh_2d(tp=2)``; torchrun's environment set by
+    :func:`start_tp_shared_card`), through the library: one noise-off step
+    of CMLPL (f32, bf16 and with the memory bank), CPS and CCT at PaviaU
+    width and of the supervised trainer on BaseNet2, BaseNet2Zoo, BaseNet1
+    and SSRN at their own, each from one state (rank 0 also takes the
+    one-rank step) with its placement; a 1-epoch f32 CMLPL run (78 steps,
+    one pool) with the model axis's all-reduces counted and the data
+    axis's timed; net B's map of its gathered weights over the data ranks
+    (203 tiles a rank; rank 0 also maps the whole scene on one rank) and
+    its dense map in strips of scene rows."""
+    import torch.distributed as dist
+
+    from cmlpl_tpu_torch.cli._common import logits_fn
+    from cmlpl_tpu_torch.core.mesh import (TP_COLLECTIVES, create_mesh_2d,
+                                           initialize_multihost)
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+    from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.data.splits import generate_splits
+    from cmlpl_tpu_torch.eval.inference import (ScenePredictor,
+                                                dense_scene_logits)
+    from cmlpl_tpu_torch.eval.metrics import cal_accuracy
+    from cmlpl_tpu_torch.models.basenet import BaseNet2
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+    from cmlpl_tpu_torch.registry import get_dataset
+    from cmlpl_tpu_torch.train.supervised import schedule
+    from cmlpl_tpu_torch.weights import state_dict_from_jax
+
+    def launches():
+        return [w.launches for w in WRAPPERS]
+
+    def reset():
+        for w in WRAPPERS:
+            w.launches = 0
+
+    device = torch.device("cuda:0")
+    require(initialize_multihost(backend="gloo", device=device) == 4,
+            "not a world of four")
+    mesh = create_mesh_2d(TP, device)
+    require((mesh.size, mesh.tp, mesh.data_size, mesh.backend)
+            == (4, TP, 2, "gloo"), f"mesh {mesh}")
+    out = {"rank": mesh.rank, "coords": [mesh.data, mesh.model],
+           "steps": {}, "placement": {}, "step_launches": {}}
+    cube, gt = synthetic_scene(DATA_ID)
+    tscene = prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W,
+                           n_pc=N_PC, device=device)
+    li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
+    first = (li[0], ly[0], ui[0])
+    off = dict(noise=0.0, dropout=0.0, gather_impl="pool")
+    for case, (algo, extra) in TP_STEPS.items():
+        cfg = dict(off, **extra)
+        trainer = mh_trainer(algo, mesh, **cfg)
+        reset()
+        two, state = mh_step(trainer, tscene, first, with_state=True)
+        out["step_launches"][case] = launches()
+        out["placement"][case] = tp_placement(trainer, state)
+        if mesh.rank == 0:
+            out["steps"][case] = hold_step(
+                f"{case}: a 2 x 2 mesh vs one rank on the card", two,
+                mh_step(mh_trainer(algo, **cfg), tscene, first),
+                bf16="compute_dtype" in extra)
+    # BaseNet2 and BaseNet2Zoo at PaviaU width take the training scene
+    scenes = dict(zoo_mh_scenes(cube, gt, device, ("basenet1", "ssrn")),
+                  basenet2=tscene, basenet2_zoo=tscene)
+    labels = gt.reshape(-1).astype(np.int32)
+    train = generate_splits(labels, num_label=5).train
+    zli, zly = schedule(train, labels, ZOO_BATCH, 1, None, 1088,
+                        data=mesh.data_size)
+    out["zoo_batch"] = int(zli.shape[1])
+    for name in TP_ZOO:
+        two, (trainer, state) = zoo_mh_step(name, scenes[name], zli[0],
+                                            zly[0], mesh, with_state=True)
+        out["placement"][name] = tp_placement(trainer, state)
+        if mesh.rank == 0:
+            out["steps"][name] = hold_zoo_step(
+                name, two, zoo_mh_step(name, scenes[name], zli[0], zly[0]))
+
+    # a full-width f32 CMLPL epoch (78 steps, one pool) through fit
+    trainer = mh_trainer("cmlpl", mesh, num_epochs=1)
+    state = trainer.init_state(SEED)
+    sampler = SemiSupervisedSampler(generate_splits(tscene.labels,
+                                                    num_label=5),
+                                    tscene.labels, 128, 128, 10000,
+                                    seed=1088)
+    reset()
+    TP_COLLECTIVES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, history = trainer.fit(state, tscene, sampler, log_every=0)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["steps_run"] = len(history)
+    out["train_launches"] = launches()
+    out["tp_collectives"] = {"calls": TP_COLLECTIVES.calls,
+                             "bytes": TP_COLLECTIVES.bytes,
+                             "host_s": TP_COLLECTIVES.seconds}
+    out["oa_history_acc_last"] = history[-1]["acc"]
+    numel = sum(p.numel() for p in trainer.named_params(state).values())
+    out["data_all_reduce"] = {
+        "bytes": numel * 4,
+        "ms": timed_all_reduce_ms(numel, device, group=mesh.data_group)}
+    out["run_placement"] = tp_placement(trainer, state)
+    # net B's map from its weights gathered whole: strips over the data
+    # ranks, a model rank repeating its data rank's
+    params = trainer.state_to_jax(state)["net_b"]["params"]
+    model = BaseNet2(num_features=get_dataset(DATA_ID).num_bands,
+                     num_classes=get_dataset(DATA_ID).num_classes,
+                     n_pc=N_PC, patch_size=W)
+    model.load_state_dict(state_dict_from_jax(params))
+    model = model.to(device).eval()
+    predictor = ScenePredictor(logits_fn(model), patch_size=W,
+                               cols=tscene.cols, tile=TILE, gather="pallas",
+                               mesh=mesh)
+    reset()
+    labels_map = predictor(tscene)
+    out["map_launches"] = launches()
+    splits = generate_splits(tscene.labels, num_label=5)
+    out["oa_net_b"] = cal_accuracy(labels_map[splits.test],
+                                   tscene.labels[splits.test] - 1).oa
+    out["labels_digest"] = hashlib.sha256(labels_map.tobytes()).hexdigest()
+    reset()
+    dense = ScenePredictor(None, patch_size=W, cols=tscene.cols,
+                           gather="dense", params=model.state_dict(),
+                           mesh=mesh)(tscene)
+    out["dense_launches"] = launches()
+    out["dense_digest"] = hashlib.sha256(dense.tobytes()).hexdigest()
+    if mesh.rank == 0:
+        one = ScenePredictor(logits_fn(model), patch_size=W,
+                             cols=tscene.cols, tile=TILE,
+                             gather="pallas")(tscene)
+        out["map_equals_one_rank_map"] = bool(np.array_equal(labels_map,
+                                                             one))
+        whole = ScenePredictor(None, patch_size=W, cols=tscene.cols,
+                               gather="dense",
+                               params=model.state_dict())(tscene)
+        with torch.inference_mode():
+            logits = dense_scene_logits(model.state_dict(), tscene)
+        tie_safe_equal(dense, whole, lambda ids: logits[torch.from_numpy(
+            ids).to(device)], "2 x 2 dense strips vs the one-rank dense map")
+        out["dense_differing_pixels"] = int((dense != whole).sum())
+    out["wall_s"] = time.perf_counter() - T_IMPORT
+    dist.destroy_process_group()
+    return out
+
+
+def start_tp_shared_card(tmp):
+    """The four ranks of :func:`run_tp_shared_card_rank`, started now, at
+    a priority below the bundles' compiling children (their work has the
+    A/B phases' minutes to finish in)."""
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "4", "LOCAL_RANK": "0"}
+    return [start_child(os.path.join(tmp, f"rank{r}"),
+                        "run_tp_shared_card_rank", os.path.join(tmp, "files"),
+                        nice=15, env=dict(env, RANK=str(r)))
+            for r in range(4)]
+
+
+def phase_tp_shared_card(children) -> dict:
+    """Four gloo ranks on one card as a 2 x 2 mesh (``tp_shared_card``):
+    every hold of :func:`run_tp_shared_card_rank`; returns the launches a
+    rank."""
+    ranks = [finish_child(c) for c in children]
+    half = 1024 // TP
+    for r in ranks:
+        rank = r["rank"]
+        require(r["coords"] == [rank // TP, rank % TP],
+                f"rank {rank} at {r['coords']}")
+        for case, pl in r["placement"].items():
+            replicated = case == "ssrn"
+            require(pl["placed"] is not replicated,
+                    f"rank {rank} {case}: placed {pl['placed']}")
+            for name, shapes in pl["shapes"].items():
+                shapes = [tuple(sh) for sh in shapes]
+                if name.endswith("feat_spe.weight"):
+                    require(all(sh[0] == half for sh in shapes),
+                            f"rank {rank} {case}: {name} {shapes}")
+                elif name.endswith("classifier.weight"):
+                    require(all(sh[1] in (2624 // TP, 256 // TP)
+                                for sh in shapes),
+                            f"rank {rank} {case}: {name} {shapes}")
+                else:
+                    require(shapes == [(1280, half)],
+                            f"rank {rank} {case}: {name} {shapes}")
+            require(replicated or pl["shapes"],
+                    f"rank {rank} {case}: no split tensor")
+        for case, n in r["step_launches"].items():
+            want = [0, 1] if case == "cmlpl_bf16" else [1, 0]
+            require(n == want, f"rank {rank} {case}: step launches {n}")
+        require(r["steps_run"] == 78, f"steps {r['steps_run']}")
+        require(r["train_launches"] == [1, 0],
+                f"rank {rank}: 1-epoch run launches {r['train_launches']}")
+        require(r["map_launches"] == [203, 0],
+                f"rank {rank}: map launches {r['map_launches']}")
+        require(r["dense_launches"] == [0, 0],
+                f"rank {rank}: dense launches {r['dense_launches']}")
+        require(r["tp_collectives"]["calls"] > 0,
+                f"rank {rank}: no model-axis collective")
+        require(r["zoo_batch"] == 44, f"zoo batch {r['zoo_batch']}")
+    # the replicated tensors and same-index shards bitwise equal across
+    # the data ranks; the model ranks of a data rank hold other blocks
+    for case in ranks[0]["placement"]:
+        pls = [r["placement"][case] for r in ranks]
+        require(len({p["whole_digest"] for p in pls}) == 1,
+                f"{case}: the whole states differ across ranks")
+        require(pls[0]["local_digest"] == pls[2]["local_digest"]
+                and pls[1]["local_digest"] == pls[3]["local_digest"],
+                f"{case}: same-index shards differ across the data ranks")
+        differ = pls[0]["local_digest"] != pls[1]["local_digest"]
+        require(differ is (case != "ssrn"),
+                f"{case}: model ranks' shards differ: {differ}")
+    for key in ("labels_digest", "dense_digest", "oa_net_b"):
+        require(len({r[key] for r in ranks}) == 1,
+                f"the ranks differ in {key}")
+    r0 = ranks[0]
+    require(set(r0["steps"]) == set(TP_STEPS) | set(TP_ZOO),
+            f"steps held: {sorted(r0['steps'])}")
+    require(r0["map_equals_one_rank_map"],
+            "the 2 x 2 map is not bitwise the one-rank map")
+    steps = r0["steps_run"]
+    emit({"phase": "tp_shared_card", "ranks": 4, "mesh": [2, TP],
+          "backend": "gloo", "device": "cuda:0 (all four ranks)",
+          "one_step_vs_one_rank": r0["steps"],
+          "placement": {case: {"shapes": p["shapes"],
+                               "placed": p["placed"]}
+                        for case, p in r0["placement"].items()},
+          "placement_rank1": {case: p["shapes"]
+                              for case, p in ranks[1]["placement"].items()},
+          "shards_differ_between_model_ranks": True,
+          "replicas_and_same_index_shards_bitwise_equal": True,
+          "epochs": 1, "steps": steps,
+          "train_s": [r["train_s"] for r in ranks],
+          "ms_per_step": [r["train_s"] / steps * 1e3 for r in ranks],
+          "ms_per_step_note": "four ranks share one card: not a speed "
+                              "figure",
+          "tp_collectives_per_step": [
+              {"calls": r["tp_collectives"]["calls"] / steps,
+               "bytes": r["tp_collectives"]["bytes"] / steps,
+               "host_ms": r["tp_collectives"]["host_s"] / steps * 1e3}
+              for r in ranks],
+          "data_all_reduce_per_step": [dict(r["data_all_reduce"], calls=1)
+                                       for r in ranks],
+          "rank_wall_s": [r["wall_s"] for r in ranks],
+          "launches_per_rank": [{"pool": r["train_launches"][0],
+                                 "map": r["map_launches"][0],
+                                 "bf16_pool": r["step_launches"][
+                                     "cmlpl_bf16"][1]} for r in ranks],
+          "map_equals_one_rank_map": True, "oa_net_b": r0["oa_net_b"],
+          "dense_map": {"launches": r0["dense_launches"],
+                        "differing_pixels_vs_one_rank":
+                        r0["dense_differing_pixels"]}})
+    return {"train": r0["train_launches"][0], "map": r0["map_launches"][0],
+            "bf16": r0["step_launches"]["cmlpl_bf16"][1]}
+
+
 def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
     """``cli.train --multihost`` as a one-rank NCCL world (torchrun's
     environment), 2 epochs of the default f32 cell, beside the same run
@@ -4511,12 +4860,16 @@ def main() -> int:
         # own beside the A/B phases, which time nothing they report
         shared = start_shared_card(os.path.join(child_tmp, "shared_card"))
         children.extend(shared)
+        # slice 14: four gloo ranks as a 2 x 2 mesh on the card, beside
+        tp_ranks = start_tp_shared_card(os.path.join(child_tmp, "tp_card"))
+        children.extend(tp_ranks)
         ab, scene_npz = ab_inputs(tmp)
         for algo in ("cmlpl", "cps", "cct"):
             phase_ab(ab, scene_npz, algo)
         phase_ab(ab, scene_npz, "cmlpl", ["--compute_dtype", "bfloat16"],
                  "bf16_ab")
         shared_card = phase_multihost_shared_card(shared)
+        tp_card = phase_tp_shared_card(tp_ranks)
     require(tf32_flags() == flags_at_start,
             f"TF32 left at {tf32_flags()}, found at {flags_at_start}")
 
@@ -4621,7 +4974,11 @@ def main() -> int:
             f"cli.train_backbone --multihost --model {MH_ZOO_MODEL}, a "
             "one-rank NCCL world, training": world1["zoo_train"],
             f"cli.train_backbone --multihost --model {MH_ZOO_MODEL}, a "
-            "one-rank NCCL world, one map": world1["zoo_map"]},
+            "one-rank NCCL world, one map": world1["zoo_map"],
+            "a 2 x 2 mesh of four gloo ranks on one card, CMLPL 1 epoch "
+            "(pool), training, each rank": tp_card["train"],
+            "a 2 x 2 mesh of four gloo ranks on one card, net B's map of "
+            "its gathered weights, each rank's strip": tp_card["map"]},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
             per_step["pallas_bf16"]["launches_training"][1],
@@ -4635,7 +4992,9 @@ def main() -> int:
             "1 epoch (one pool for the 4 seeds), training":
             fused["fused_bf16"],
             "two gloo ranks on one card, one bf16 CMLPL step (pool), each "
-            "rank": shared_card["bf16"]}}
+            "rank": shared_card["bf16"],
+            "a 2 x 2 mesh of four gloo ranks on one card, one bf16 CMLPL "
+            "step (pool), each rank": tp_card["bf16"]}}
     for name, n in zoo_launches.items():
         flags = " ".join(ZOO_EXTRA.get(name, []))
         launches_train["patch_gather_f32"][

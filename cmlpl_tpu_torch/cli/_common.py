@@ -35,8 +35,7 @@ import numpy as np
 import torch
 
 from cmlpl_tpu_torch.core.mesh import (barrier, broadcast_object,
-                                       initialize_multihost, is_primary,
-                                       place_state)
+                                       initialize_multihost, is_primary)
 from cmlpl_tpu_torch.data.pipeline import SemiSupervisedSampler
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.data.splits import generate_splits, load_splits
@@ -46,8 +45,9 @@ from cmlpl_tpu_torch.ops.patch_gather import TRAIN_GATHERS
 from cmlpl_tpu_torch.registry import get_dataset
 from cmlpl_tpu_torch.train.state import CMLPLConfig
 from cmlpl_tpu_torch.utils.checkpoint import (load_net_params,
-                                              restore_checkpoint,
-                                              save_checkpoint)
+                                              read_checkpoint,
+                                              save_checkpoint,
+                                              state_from_checkpoint)
 from cmlpl_tpu_torch.weights import load_params_npz, state_dict_from_jax
 
 
@@ -418,22 +418,22 @@ def maybe_resume(args, trainer, state, batches_per_epoch: int):
     batches_per_epoch``; returns (state, start_epoch).  The run then draws
     its batches afresh from the sampler's first epoch, as the JAX
     package's does.  Over a trainer's mesh rank 0 alone reads the
-    directory (the others may not see it) and every rank takes what it
-    found, a state or none (``core/mesh.place_state``)."""
+    directory (the others may not see it) and broadcasts what it found,
+    the files or none; every rank builds its state from them."""
     if not (args.resume and args.checkpoint_dir):
         return state, 0
     mesh = getattr(trainer, "mesh", None)
-    restored = None
+    found = None
     if is_primary(mesh):
         try:
-            restored = restore_checkpoint(args.checkpoint_dir, trainer)
+            found = read_checkpoint(args.checkpoint_dir)
         except FileNotFoundError:
             pass
-    if not broadcast_object(restored is not None, mesh):
+    found = broadcast_object(found, mesh)
+    if found is None:
         print("no checkpoint to resume from; starting fresh")
         return state, 0
-    state = place_state(mesh, trainer,
-                        state if restored is None else restored)
+    state = state_from_checkpoint(trainer, *found)
     start_epoch = state.step // batches_per_epoch
     print(f"resumed from step {state.step} (epoch {start_epoch})")
     return state, start_epoch
@@ -443,10 +443,8 @@ def save_state(args, trainer, state) -> None:
     """The trainer state under ``--checkpoint_dir``, written by rank 0 of
     the trainer's mesh (the replicas are equal); every rank waits for
     it."""
-    mesh = getattr(trainer, "mesh", None)
-    if is_primary(mesh):
-        save_checkpoint(args.checkpoint_dir, trainer, state)
-    barrier(mesh)
+    save_checkpoint(args.checkpoint_dir, trainer, state)
+    barrier(getattr(trainer, "mesh", None))
 
 
 def save_final_checkpoint(args, trainer, state) -> None:

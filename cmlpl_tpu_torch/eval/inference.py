@@ -24,6 +24,11 @@ GSPMD, ``:264-318``): rank r runs the same dilated pass over the slice of
 the replicated padded cube that its strip and the conv stack's halo need
 (:func:`dense_strip_logits`), and the int32 labels are gathered to every
 rank.  A strip's logits are the whole pass's within rounding.
+
+On a ("data", "model") mesh the strips go over the data ranks, and a
+model rank maps its data rank's strip (the JAX package's ``shard_map``
+over ``mesh.axis_names[0]``), with whole weights: a trainer's sharded
+state gives them by ``*_state_to_jax``.
 """
 
 from __future__ import annotations
@@ -273,7 +278,7 @@ class ScenePredictor:
             if mesh is None:
                 logits = dense_scene_logits(self.params, scene)
                 return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
-            r0, r1 = strip_rows(scene.rows, mesh.size, mesh.rank)
+            r0, r1 = strip_rows(scene.rows, mesh.data_size, mesh.data)
             preds = dense_strip_logits(self.params, scene, r0, r1).argmax(
                 dim=-1).to(torch.int32)
             return gather_rows(preds, mesh, r0 * scene.cols,
@@ -287,7 +292,7 @@ class ScenePredictor:
 
         k = scene.num_pixels
         tile = self.tile
-        ranks = 1 if mesh is None else mesh.size
+        ranks = 1 if mesh is None else mesh.data_size
         padded_k = pad_to_multiple(k, tile * ranks)
         lo, hi = (0, padded_k) if mesh is None else mesh.rows(padded_k)
         idx = np.arange(lo, hi, dtype=np.int32)

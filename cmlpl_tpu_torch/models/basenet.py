@@ -9,6 +9,18 @@ spatial flatten runs in (H, W, C) order like the flax model, so weights
 carried over from JAX (:mod:`cmlpl_tpu_torch.weights`) line up with the
 classifier's rows.  BaseNet2 and CCTNet share one stem (the JAX package
 writes it twice) and its layer names.
+
+Built with ``tp`` (a mesh of ``core/mesh.create_mesh_2d`` whose model
+axis has more than one rank), a model holds this rank's shards of the
+wide spectral path (``core/mesh.tp_dim``): ``feat_spe`` its 1,024 / tp
+output features and bias, whose output is gathered whole
+(``core/tp.gather_cols``) before the concat and the l2-norm; a
+``classifier`` its block of input columns, the rows of JAX's
+``P("model", None)`` kernel (the flatten is in JAX's order, so the
+blocks line up), against this rank's columns of the concat
+(``core/tp.slice_cols``), the partial logits summed over the model ranks
+(``core/tp.sum_partials``) and the replicated bias added once, after
+the sum.  Dropout draws the whole mask, as one process does.
 """
 
 from __future__ import annotations
@@ -17,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cmlpl_tpu_torch.core import tp as tpc
+from cmlpl_tpu_torch.core.mesh import Mesh, is_tp
 from cmlpl_tpu_torch.device import compute_precision
 from cmlpl_tpu_torch.models.common import (avg_pool2, dropout,  # noqa: F401
                                            keep_mask, l2_normalize)
@@ -39,18 +53,31 @@ class _Stem(nn.Module):
     ``compute_dtype``: dtype the stem computes in; params stay f32 and are
     cast per call, as flax's ``dtype`` does, so autograd carries the bf16
     products' gradients back to the f32 params.  The model's own calls set
-    the TF32 switches from it (``compute_precision``) and restore them."""
+    the TF32 switches from it (``compute_precision``) and restore them.
+    ``tp``: the mesh whose model axis splits the spectral path (the
+    module docstring), or None."""
 
-    def __init__(self, num_features: int, n_pc: int, compute_dtype: str):
+    def __init__(self, num_features: int, n_pc: int, compute_dtype: str,
+                 tp: Mesh | None = None):
         super().__init__()
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.precision = compute_dtype
         self.compute_dtype = _DTYPES[compute_dtype]
+        self.tp = tp if is_tp(tp) else None
         self.conv0 = nn.Conv2d(n_pc, 64, 1)
         self.conv1 = nn.Conv2d(64, 64, 3, padding=1)
         self.conv2 = nn.Conv2d(64, 64, 3, padding=1)
-        self.feat_spe = nn.Linear(num_features, FEAT_DIM)
+        self.feat_spe = nn.Linear(num_features, tpc.width(FEAT_DIM, self.tp))
+        self._split(self.feat_spe.weight, self.feat_spe.bias)
+
+    def _split(self, *params) -> None:
+        """Marks ``params`` as this rank's shards (``tp_split``: their
+        gradients are not the model ranks' one gradient,
+        ``core/mesh.all_reduce_grads``)."""
+        if self.tp is not None:
+            for p in params:
+                p.tp_split = True
 
     def _conv(self, layer: nn.Conv2d, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -60,6 +87,15 @@ class _Stem(nn.Module):
     def _dense(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.linear(h, layer.weight.to(dt), layer.bias.to(dt))
+
+    def _classify(self, layer: nn.Linear, z: torch.Tensor) -> torch.Tensor:
+        """``layer`` (a classifier, whose input columns the model axis
+        splits) on the replicated ``z``."""
+        if self.tp is None:
+            return self._dense(layer, z)
+        dt = self.compute_dtype
+        part = F.linear(tpc.slice_cols(z, self.tp), layer.weight.to(dt))
+        return tpc.sum_partials(part, self.tp) + layer.bias.to(dt)
 
     def stem(self, xp: torch.Tensor, x: torch.Tensor):
         """(spatial flatten (B, 64 (w/4)^2) in (H, W, C) order, ReLU'd
@@ -74,7 +110,7 @@ class _Stem(nn.Module):
         h = avg_pool2(h)
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         y = F.relu(self._dense(self.feat_spe, x.to(self.compute_dtype)))
-        return h, y
+        return h, tpc.gather_cols(y, self.tp)
 
 
 class BaseNet2(_Stem):
@@ -86,10 +122,12 @@ class BaseNet2(_Stem):
 
     def __init__(self, num_features: int = 103, dropout: float = 0.0,
                  num_classes: int = 9, n_pc: int = 60, patch_size: int = 20,
-                 compute_dtype: str = "float32"):
-        super().__init__(num_features, n_pc, compute_dtype)
+                 compute_dtype: str = "float32", tp: Mesh | None = None):
+        super().__init__(num_features, n_pc, compute_dtype, tp)
         self.dropout = dropout
-        self.classifier = nn.Linear(joint_dim(patch_size), num_classes)
+        self.classifier = nn.Linear(tpc.width(joint_dim(patch_size), self.tp),
+                                    num_classes)
+        self._split(self.classifier.weight)
 
     def forward(self, xp: torch.Tensor, x: torch.Tensor,
                 generator: torch.Generator | None = None,
@@ -102,7 +140,7 @@ class BaseNet2(_Stem):
             feat = l2_normalize(y.float())
             if self.dropout > 0 and self.training:
                 z = dropout(z, self.dropout, generator, keep)
-            logits = self._dense(self.classifier, z)
+            logits = self._classify(self.classifier, z)
         return logits.float(), feat
 
 
@@ -113,11 +151,13 @@ class BaseNet1(_Stem):
     its ReLU); f32."""
 
     def __init__(self, num_features: int = 103, dropout: float = 0.0,
-                 num_classes: int = 9, n_pc: int = 5, patch_size: int = 20):
-        super().__init__(num_features, n_pc, "float32")
+                 num_classes: int = 9, n_pc: int = 5, patch_size: int = 20,
+                 tp: Mesh | None = None):
+        super().__init__(num_features, n_pc, "float32", tp)
         self.dropout = dropout
         self.feat_ss = nn.Linear(joint_dim(patch_size), 256)
-        self.classifier = nn.Linear(256, num_classes)
+        self.classifier = nn.Linear(tpc.width(256, self.tp), num_classes)
+        self._split(self.classifier.weight)
 
     def forward(self, xp: torch.Tensor, x: torch.Tensor,
                 generator: torch.Generator | None = None):
@@ -127,7 +167,7 @@ class BaseNet1(_Stem):
             z = F.relu(feat)
             if self.dropout > 0 and self.training:
                 z = dropout(z, self.dropout, generator)
-            return self.classifier(z), feat
+            return self._classify(self.classifier, z), feat
 
 
 class CCTNet(_Stem):
@@ -138,13 +178,14 @@ class CCTNet(_Stem):
 
     ``dropout`` and ``num_classes`` are taken for the JAX signature and
     unused: the JAX CCTNet applies no dropout, although its trainer passes
-    a dropout key (``cmlpl_tpu/models/basenet.py:163-185``)."""
+    a dropout key (``cmlpl_tpu/models/basenet.py:163-185``).  ``tp``
+    splits ``feat_spe`` alone: it has no classifier."""
 
     def __init__(self, num_features: int = 103, dropout: float = 0.0,
                  num_classes: int = 9, n_pc: int = 60, patch_size: int = 20,
                  with_decoder: bool = False,
-                 compute_dtype: str = "float32"):
-        super().__init__(num_features, n_pc, compute_dtype)
+                 compute_dtype: str = "float32", tp: Mesh | None = None):
+        super().__init__(num_features, n_pc, compute_dtype, tp)
         self.with_decoder = with_decoder
         if with_decoder:
             self.feat_ss = nn.Linear(joint_dim(patch_size), 256)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cmlpl_tpu_torch.core import tp as tpc
 from cmlpl_tpu_torch.device import compute_precision
 from cmlpl_tpu_torch.models.basenet import (BaseNet1, BaseNet2, _Stem,
                                             joint_dim)
@@ -35,15 +36,19 @@ class BaseNet2Zoo(_Stem):
     """The zoo variant of BaseNet2 (conpared_models.py:391-458): a feature
     head off the spectral path, ``feat_ss`` -> ``feat_ss2`` -> l2norm
     (64-d), and the classifier on the joint concat.  Returns (logits,
-    feature); f32."""
+    feature); f32.  ``tp`` splits ``feat_spe`` and the classifier, as
+    BaseNet2's; the feature head reads the gathered ``y``."""
 
     def __init__(self, num_features: int = 103, dropout: float = 0.0,
-                 num_classes: int = 9, n_pc: int = 60, patch_size: int = 20):
-        super().__init__(num_features, n_pc, "float32")
+                 num_classes: int = 9, n_pc: int = 60, patch_size: int = 20,
+                 tp=None):
+        super().__init__(num_features, n_pc, "float32", tp)
         self.dropout = dropout
         self.feat_ss = nn.Linear(1024, 256)
         self.feat_ss2 = nn.Linear(256, 64)
-        self.classifier = nn.Linear(joint_dim(patch_size), num_classes)
+        self.classifier = nn.Linear(tpc.width(joint_dim(patch_size), self.tp),
+                                    num_classes)
+        self._split(self.classifier.weight)
 
     def forward(self, xp: torch.Tensor, x: torch.Tensor,
                 generator: torch.Generator | None = None):
@@ -53,7 +58,7 @@ class BaseNet2Zoo(_Stem):
             feat = l2_normalize(self.feat_ss2(F.relu(self.feat_ss(y))))
             if self.dropout > 0 and self.training:
                 z = dropout(z, self.dropout, generator)
-            return self.classifier(z), feat
+            return self._classify(self.classifier, z), feat
 
 
 @torch.no_grad()
@@ -133,6 +138,9 @@ def _zoo() -> dict[str, ZooEntry]:
 
 
 ZOO = _zoo()
+#: the zoo models with a ``feat_spe``: the model axis splits them
+#: (``core/mesh.tp_dim``), and replicates the others
+TP_MODELS = ("basenet1", "basenet2", "basenet2_zoo")
 
 
 def build_model(name: str, spec, n_pc: int, patch_size: int, **kw):

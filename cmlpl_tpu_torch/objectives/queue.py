@@ -12,6 +12,13 @@ An exported training run writes out of place (:func:`queue_write`): the
 rows go to ``(ptr + arange(n)) % size`` by ``index_copy``, the pointer is a
 0-d tensor, and the values equal :func:`queue_update`'s.
 
+On a ("data", "model") mesh a queue holds this model rank's columns of
+the features, ``(size, feat_dim / tp)`` (JAX's ``P(None, "model")``):
+given ``tp``, the mesh, smoothing contracts the rank's columns of the
+features against them and sums the scores over the model ranks before
+the softmax, and a write keeps the rank's columns.  The probs and the
+pointer are replicated.
+
 Pointer semantics: the reference advances the pointer by the constant 256
 instead of the written row count, and seeds ``queue_ptr1`` from the
 *already updated* ``queue_ptr`` (``train.py:234-237``).  Like the JAX
@@ -24,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from cmlpl_tpu_torch.core import tp as tpc
 
 
 @dataclasses.dataclass
@@ -45,19 +54,20 @@ def queue_init(size: int, feat_dim: int, num_classes: int,
 @torch.no_grad()
 def memory_smooth(feats: torch.Tensor, probs: torch.Tensor,
                   queue: QueueState, alpha: float,
-                  temperature: float) -> torch.Tensor:
+                  temperature: float, tp=None) -> torch.Tensor:
     """Pseudo-label memory smoothing (reference train.py:213-219):
 
         A = rownorm(exp(feats @ queue_feats.T / T))   [== softmax]
         probs <- alpha * probs + (1 - alpha) * A @ queue_probs
     """
-    a = torch.softmax(feats @ queue.feats.T / temperature, dim=1)
+    scores = tpc.sum_partials(tpc.slice_cols(feats, tp) @ queue.feats.T, tp)
+    a = torch.softmax(scores / temperature, dim=1)
     return alpha * probs + (1.0 - alpha) * (a @ queue.probs)
 
 
 @torch.no_grad()
 def queue_update(queue: QueueState, new_feats: torch.Tensor,
-                 new_probs: torch.Tensor) -> None:
+                 new_probs: torch.Tensor, tp=None) -> None:
     """FIFO write of n rows at the pointer, modulo the queue size, in
     place: at most two contiguous slices.  Rows are the second-last dim,
     so a seed-stacked queue ((seeds, size, ...), one pointer: every seed
@@ -66,6 +76,7 @@ def queue_update(queue: QueueState, new_feats: torch.Tensor,
     n = new_feats.shape[-2]
     if n > size:
         raise ValueError(f"{n} rows do not fit a queue of {size}")
+    new_feats = tpc.slice_cols(new_feats, tp)
     head = min(n, size - queue.ptr)
     for dst, src in ((queue.feats, new_feats), (queue.probs, new_probs)):
         dst[..., queue.ptr:queue.ptr + head, :] = src[..., :head, :]

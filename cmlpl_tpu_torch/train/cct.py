@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cmlpl_tpu_torch.core.mesh import tp_shard_tree
 from cmlpl_tpu_torch.models.basenet import CCTNet, LinearClassifier, joint_dim
 from cmlpl_tpu_torch.objectives.cct import softmax_js_loss
 from cmlpl_tpu_torch.objectives.supervised import cross_entropy
@@ -66,16 +67,21 @@ class CCTTrainer(EpochDriver):
     def new_state(self, params, run_seed: int) -> CCTTrainState:
         """A state from the CCT param tree in the JAX layout
         (``{"encoder", "dec_base", "dec1", "dec2"}``), fresh Adam states,
-        and a generator seeded with ``run_seed``."""
+        and a generator seeded with ``run_seed``.  On a 2-D mesh the
+        encoder holds the rank's ``feat_spe`` shard; the heads (``fc``,
+        not ``classifier``) are replicated (``cmlpl_tpu/train/cct.py``
+        ``:111-128``)."""
         cfg = self.config
         model = nn.ModuleDict({"encoder": CCTNet(
             num_features=cfg.num_features, dropout=cfg.dropout,
             num_classes=cfg.num_classes, n_pc=cfg.n_pc,
-            patch_size=cfg.patch_size, compute_dtype=cfg.compute_dtype)})
+            patch_size=cfg.patch_size, compute_dtype=cfg.compute_dtype,
+            tp=self.tp)})
         for name in HEADS:
             model[name] = LinearClassifier(
                 cfg.num_classes, in_features=joint_dim(cfg.patch_size))
-        model.load_state_dict(state_dict_from_jax(params))
+        model.load_state_dict(state_dict_from_jax(tp_shard_tree(params,
+                                                                self.tp)))
         model = model.to(self.device).train()
         enc = list(model["encoder"].parameters())
 

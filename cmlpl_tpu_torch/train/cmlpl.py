@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cmlpl_tpu_torch.core import tp as tpc
 from cmlpl_tpu_torch.data.augment import (mixture_noise, radiation_noise,
                                           random_flip, random_rot90)
 from cmlpl_tpu_torch.objectives.cmlpl import (adaptive_threshold,
@@ -101,18 +102,21 @@ class CMLPLTrainer(TwoNetDriver):
                   ) -> CMLPLTrainState:
         """A state from two BaseNet2 param trees in the JAX layout, fresh
         Adam states, queues and (``extra_loss="memobank"``) bank, and a
-        generator seeded with ``run_seed``."""
+        generator seeded with ``run_seed``.  On a 2-D mesh the queues hold
+        the rank's feature columns and the bank is replicated
+        (``cmlpl_tpu/train/cmlpl.py:155-159``)."""
         cfg = self.config
         bank = None
         if cfg.extra_loss == "memobank":
             bank = memobank_init(cfg.num_classes, cfg.memobank_size,
                                  cfg.feat_dim, self.device)
+        width = tpc.width(cfg.feat_dim, self.tp)
         return CMLPLTrainState(
             net_b=self._new_net(params_b), net_e=self._new_net(params_e),
-            queue_w=queue_init(cfg.queue_size, cfg.feat_dim,
-                               cfg.num_classes, self.device),
-            queue_s=queue_init(cfg.queue_size, cfg.feat_dim,
-                               cfg.num_classes, self.device),
+            queue_w=queue_init(cfg.queue_size, width, cfg.num_classes,
+                               self.device),
+            queue_s=queue_init(cfg.queue_size, width, cfg.num_classes,
+                               self.device),
             generator=torch.Generator(self.device).manual_seed(run_seed),
             bank=bank)
 
@@ -195,10 +199,10 @@ class CMLPLTrainer(TwoNetDriver):
             # the update
             probs = _when(warm, lambda: memory_smooth(
                 xw.detach(), probs_orig, carry["queue_w"], cfg.alpha,
-                cfg.temperature), probs_orig)
+                cfg.temperature, self.tp), probs_orig)
             probs1 = _when(warm, lambda: memory_smooth(
                 xs.detach(), probs_orig1, carry["queue_s"], cfg.alpha,
-                cfg.temperature), probs_orig1)
+                cfg.temperature, self.tp), probs_orig1)
             mask = (probs.max(dim=1).values >= thr).float()
             masks = (probs1.max(dim=1).values >= thr).float()
             # [other-net unlabeled feats, own labeled feats] with the
@@ -246,7 +250,7 @@ class CMLPLTrainer(TwoNetDriver):
     @torch.no_grad()
     def _write(self, carry: dict, writes: dict) -> None:
         for name in ("queue_w", "queue_s"):
-            queue_update(carry[name], *writes[name])
+            queue_update(carry[name], *writes[name], tp=self.tp)
         if "bank" in writes:
             for field in ("feats", "count", "ptr"):
                 getattr(carry["bank"], field).copy_(

@@ -62,6 +62,7 @@ gathered as one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -70,8 +71,8 @@ from torch.func import functional_call, vmap
 
 from cmlpl_tpu_torch.core.mesh import (Mesh, all_gather_rows,
                                        all_reduce_grads, is_distributed,
-                                       is_multiprocess, place_state,
-                                       shard_rows, sharded_batch)
+                                       is_tp, place_state, shard_rows,
+                                       sharded_batch, tp_shard_tree)
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision, resolve_device
 from cmlpl_tpu_torch.models.basenet import BaseNet2, joint_dim, keep_mask
@@ -122,7 +123,7 @@ class Apply:
 
     Given a ``mesh`` with a process group, a call is data parallel: every
     argument is batch-leading (the views, the dropout masks, the
-    features), the rank runs the module on its rows of them
+    features), the rank runs the module on its data rank's rows of them
     (``core/mesh.shard_rows``) and the outputs come back gathered into
     global order (``core/mesh.all_gather_rows``), so the losses after the
     call are the one-device losses on every rank.  The module runs inside
@@ -213,10 +214,16 @@ class EpochDriver:
     batch's randoms from its copy of the one generator; the forwards run
     on the rank's rows (:class:`Apply`); the gradients are summed over the
     ranks before the Adams step (:meth:`_update`).  The batches must
-    divide over the ranks, and "pallas" and "pallas_bf16" asked for by
-    name are refused over more than one rank, as in the JAX package; an
-    "auto" whose pool is over the budget still takes kernel 1 each step on
-    every rank's card.  ``device`` defaults to the mesh's."""
+    divide over the data ranks, and "pallas" and "pallas_bf16" asked for
+    by name are refused over more than one rank, as in the JAX package;
+    an "auto" whose pool is over the budget still takes kernel 1 each
+    step on every rank's card.  ``device`` defaults to the mesh's.
+
+    On a ("data", "model") mesh (``core/mesh.create_mesh_2d``) the rows
+    go over the data axis, and the states the trainer builds hold the
+    rank's shards of the wide spectral path (``tp``, the JAX package's
+    ``_state_sharding_tree``); a fused run's seeds go over the data axis
+    with whole states (:meth:`unsharded`)."""
 
     def __init__(self, config: CMLPLConfig, device=None,
                  mesh: Mesh | None = None):
@@ -224,13 +231,15 @@ class EpochDriver:
         self.device = resolve_device(
             mesh.device if device is None and mesh is not None else device)
         self.mesh = mesh
-        world = mesh.size if mesh is not None else 1
-        if config.labeled_batch % world or config.unlabeled_batch % world:
+        #: the mesh whose model axis splits the states built, or None
+        self.tp = mesh if is_tp(mesh) else None
+        data = mesh.data_size if mesh is not None else 1
+        if config.labeled_batch % data or config.unlabeled_batch % data:
             raise ValueError(
                 f"labeled/unlabeled batch sizes ({config.labeled_batch}/"
                 f"{config.unlabeled_batch}) must be divisible by the mesh "
-                f"data-axis size {world}")
-        if config.stack_nets and world > 1:
+                f"data-axis size {data}")
+        if config.stack_nets and mesh is not None and mesh.size > 1:
             raise ValueError("stack_nets runs one rank: its stacked forward "
                              "is not sharded over ranks")
         check_gather_mesh(config.gather_impl, mesh)
@@ -324,9 +333,9 @@ class EpochDriver:
 
     @staticmethod
     def _update(state, loss: torch.Tensor, *opts, mesh=None) -> None:
-        """ONE backward over ``loss``, the gradients summed over the ranks
-        of ``mesh`` (each holds its rows' share), then each Adam steps in
-        the given order, and the state's step count advances."""
+        """ONE backward over ``loss``, the gradients summed over the data
+        ranks of ``mesh`` (each holds its rows' share), then each Adam
+        steps in the given order, and the state's step count advances."""
         for opt in opts:
             opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -511,13 +520,25 @@ class EpochDriver:
         (``core/mesh.place_state``); the identity on one process."""
         return place_state(self.mesh, self, state)
 
+    @contextlib.contextmanager
+    def unsharded(self):
+        """Inside, the trainer builds whole states (a fused run's: the
+        JAX package composes no model axis with the seed axis,
+        ``cmlpl_tpu/train/driver.py:67-77``)."""
+        tp, self.tp = self.tp, None
+        try:
+            yield
+        finally:
+            self.tp = tp
+
     def seed_block(self, num_iters: int) -> tuple:
         """(lo, hi): the seeds of a fused run of ``num_iters`` that this
-        rank trains.  The seed axis is split over the ranks when they
-        divide it, else every rank trains every seed
-        (``cmlpl_tpu/train/driver.py:110-147``)."""
+        rank trains.  The seed axis is split over the data ranks when they
+        divide it (a model rank repeats its data rank's seeds), else every
+        rank trains every seed (``cmlpl_tpu/train/driver.py:110-147``)."""
         mesh = self.mesh
-        if is_multiprocess(mesh) and num_iters % mesh.size == 0:
+        if mesh is not None and mesh.data_size > 1 and \
+                num_iters % mesh.data_size == 0:
             return mesh.rows(num_iters)
         return 0, num_iters
 
@@ -540,19 +561,23 @@ class EpochDriver:
         Over a mesh each rank trains the seeds of :meth:`seed_block`, with
         no collective: every rank still makes every seed's state and draws
         every seed's schedule, keeps its own, and its pool is its seeds'.
-        The states and metrics returned are those seeds'."""
-        if states is None:
-            states = [self.init_state((seed, i)) for i in range(num_iters)]
-        if len(states) != num_iters:
-            raise ValueError(f"{len(states)} states for {num_iters} runs")
-        scheds = [stack_schedule(sampler, self.config.num_epochs)
-                  for _ in range(num_iters)]
-        lo, hi = self.seed_block(num_iters)
-        states, scheds = states[lo:hi], scheds[lo:hi]
-        li, ly, ui = (np.stack([s[j] for s in scheds]) for j in range(3))
-        ms, metrics = self._run(self.stack_states(states), scene, li, ly,
-                                ui, range(self.config.num_epochs))
-        return self.unstack(ms), metrics
+        The states (whole, on a 2-D mesh too) and metrics returned are
+        those seeds'."""
+        with self.unsharded():
+            if states is None:
+                states = [self.init_state((seed, i))
+                          for i in range(num_iters)]
+            if len(states) != num_iters:
+                raise ValueError(f"{len(states)} states for {num_iters} "
+                                 "runs")
+            scheds = [stack_schedule(sampler, self.config.num_epochs)
+                      for _ in range(num_iters)]
+            lo, hi = self.seed_block(num_iters)
+            states, scheds = states[lo:hi], scheds[lo:hi]
+            li, ly, ui = (np.stack([s[j] for s in scheds]) for j in range(3))
+            ms, metrics = self._run(self.stack_states(states), scene, li, ly,
+                                    ui, range(self.config.num_epochs))
+            return self.unstack(ms), metrics
 
     def fit(self, state, scene, sampler, *, log_every: int = 10,
             log_fn=print, start_epoch: int = 0, on_epoch_end=None):
@@ -596,7 +621,8 @@ class EpochDriver:
 
 class TwoNetDriver(EpochDriver):
     """The dual-BaseNet2 trainers (CMLPL, CPS): each net is a BaseNet2 with
-    its own Adam, built from a JAX-layout param tree."""
+    its own Adam, built from a JAX-layout param tree (whole; on a 2-D
+    mesh the net holds the rank's shards of it)."""
 
     #: where each module's params and each Adam's (module, optax state)
     #: sit in the JAX state tree (``train/functional.StateLayout``)
@@ -610,8 +636,9 @@ class TwoNetDriver(EpochDriver):
         model = BaseNet2(num_features=cfg.num_features, dropout=cfg.dropout,
                          num_classes=cfg.num_classes, n_pc=cfg.n_pc,
                          patch_size=cfg.patch_size,
-                         compute_dtype=cfg.compute_dtype)
-        model.load_state_dict(state_dict_from_jax(params))
+                         compute_dtype=cfg.compute_dtype, tp=self.tp)
+        model.load_state_dict(state_dict_from_jax(tp_shard_tree(params,
+                                                                self.tp)))
         model = model.to(self.device).train()
         # torch's Adam defaults are optax.adam's: b1 0.9, b2 0.999,
         # eps 1e-8 outside the square root, bias-corrected

@@ -25,6 +25,14 @@ so the loss, accuracy and history are global on every rank, and one
 all-reduce sums the gradients before Adam.  The running statistics, the
 Adam state and the EMA teacher stay replicated, bitwise.  The batch is
 rounded to a multiple of the ranks (``schedule``).
+
+On a ("data", "model") mesh (``core/mesh.create_mesh_2d``) the rows go
+over the data axis (the BatchNorm sums, the gradients' all-reduce and
+the batch's rounding too), and the zoo models with a ``feat_spe``
+(``models/zoo.TP_MODELS``) hold the rank's shards of their spectral
+path, their Adam moments and EMA teacher alike; the others, and every
+``batch_stats``, are replicated over the model axis
+(``cmlpl_tpu/train/supervised.py:112-130``).
 """
 
 from __future__ import annotations
@@ -37,12 +45,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cmlpl_tpu_torch.core.mesh import Mesh, all_reduce_grads, place_state
+from cmlpl_tpu_torch.core.mesh import (Mesh, all_reduce_grads, is_tp,
+                                       place_state, tp_shard_tree)
 from cmlpl_tpu_torch.data.augment import (radiation_noise, random_flip,
                                           random_rot90)
 from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision, resolve_device
-from cmlpl_tpu_torch.models.zoo import ZOO, build_model, weight_ema
+from cmlpl_tpu_torch.models.zoo import (TP_MODELS, ZOO, build_model,
+                                        weight_ema)
 from cmlpl_tpu_torch.objectives.supervised import cross_entropy
 from cmlpl_tpu_torch.ops.patch_gather import (check_gather_mesh,
                                               make_train_gather,
@@ -134,7 +144,9 @@ class SupervisedTrainer:
         self.device = resolve_device(
             mesh.device if device is None and mesh is not None else device)
         self.mesh = mesh
-        self.data = mesh.size if mesh is not None else 1
+        #: the mesh whose model axis splits the model, or None
+        self.tp = mesh if is_tp(mesh) and self.name in TP_MODELS else None
+        self.data = mesh.data_size if mesh is not None else 1
         check_gather_mesh(gather_impl, mesh)
         # a labeled-only epoch has no pre-gathered pool (the labeled set
         # is ~45 pixels): "auto" is the plain gather on the CPU, kernel 1
@@ -152,9 +164,10 @@ class SupervisedTrainer:
         layout, a fresh Adam, the EMA teacher as a copy when
         ``ema_alpha > 0``, and a generator seeded with ``run_seed``."""
         model, _ = build_model(self.name, self.spec, self.n_pc,
-                               self.patch_size)
+                               self.patch_size,
+                               **({"tp": self.tp} if self.tp else {}))
         model.load_state_dict(state_dict_from_jax(
-            params, batch_stats=batch_stats or None))
+            tp_shard_tree(params, self.tp), batch_stats=batch_stats or None))
         model = model.to(self.device).train()
         ema = (copy.deepcopy(model).eval() if self.ema_alpha > 0
                else None)

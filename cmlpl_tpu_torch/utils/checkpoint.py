@@ -14,6 +14,13 @@ alone; a checkpoint without ``generator.npy`` restores with the generator
 seeded as ``*_state_from_jax`` seeds it.  A generator state restores only
 on the device type that saved it (the CPU's Mersenne Twister and CUDA's
 Philox keep different states).
+
+Over a mesh every rank calls :func:`save_checkpoint`: a state sharded
+over a ("data", "model") mesh is gathered whole first (a collective of
+the model ranks), and rank 0 writes the ``state.npz`` that one process
+writes.  :func:`restore_checkpoint` builds, on each rank that calls it,
+the rank's shards of the whole tree; ``cli/_common.maybe_resume`` reads
+the files on rank 0 alone and broadcasts them.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import shutil
 import numpy as np
 import torch
 
+from cmlpl_tpu_torch.core.mesh import is_primary
 from cmlpl_tpu_torch.weights import (StateTree, load_params_npz,
                                      save_params_npz)
 
@@ -39,14 +47,18 @@ def save_checkpoint(directory: str, trainer, state,
     directory first and moved into place, so a run cut during a save
     leaves the last whole checkpoint the latest.  ``generator=False``
     writes no ``generator.npy`` (a state whose draws came from elsewhere:
-    an exported run's, ``cli/export_model.py --import_run``)."""
+    an exported run's, ``cli/export_model.py --import_run``).  Over the
+    trainer's mesh rank 0 alone writes; every rank takes the state's
+    whole tree (module docstring)."""
     directory = os.path.abspath(directory)
     path = os.path.join(directory, str(state.step if step is None else step))
+    tree = trainer.state_to_jax(state)
+    if not is_primary(getattr(trainer, "mesh", None)):
+        return path
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    save_params_npz(os.path.join(tmp, STATE_FILE),
-                    trainer.state_to_jax(state))
+    save_params_npz(os.path.join(tmp, STATE_FILE), tree)
     if generator:
         np.save(os.path.join(tmp, GENERATOR_FILE),
                 state.generator.get_state().numpy())
@@ -68,17 +80,30 @@ def checkpoint_path(directory: str, step: int | None = None) -> str:
     return os.path.join(directory, str(step))
 
 
+def read_checkpoint(directory: str, step: int | None = None) -> tuple:
+    """(the JAX-layout state tree, the generator's state or None) saved
+    under ``<directory>/<step>/``, the largest numeric step by default;
+    FileNotFoundError when there is none."""
+    path = checkpoint_path(directory, step)
+    tree = load_params_npz(os.path.join(path, STATE_FILE))
+    gen = os.path.join(path, GENERATOR_FILE)
+    return tree, np.load(gen) if os.path.exists(gen) else None
+
+
+def state_from_checkpoint(trainer, tree, generator=None):
+    """The state of ``trainer`` from :func:`read_checkpoint`'s pair: on a
+    2-D mesh the rank's shards of it."""
+    state = trainer.state_from_jax(StateTree(tree))
+    if generator is not None:
+        state.generator.set_state(torch.from_numpy(generator))
+    return state
+
+
 def restore_checkpoint(directory: str, trainer, step: int | None = None):
     """The state of ``trainer`` saved under ``<directory>/<step>/``, the
     largest numeric step by default; FileNotFoundError when there is
     none."""
-    path = checkpoint_path(directory, step)
-    state = trainer.state_from_jax(
-        StateTree(load_params_npz(os.path.join(path, STATE_FILE))))
-    gen = os.path.join(path, GENERATOR_FILE)
-    if os.path.exists(gen):
-        state.generator.set_state(torch.from_numpy(np.load(gen)))
-    return state
+    return state_from_checkpoint(trainer, *read_checkpoint(directory, step))
 
 
 def load_net_params(directory: str, net: str, step: int | None = None):

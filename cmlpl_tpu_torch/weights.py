@@ -20,6 +20,14 @@ JAX state (or anything read the same way: fields by attribute, tuple
 entries by index), and ``*_state_to_jax`` is its inverse, the nested dict
 of numpy arrays that a checkpoint flattens (``utils/checkpoint.py``).  The
 JAX state's PRNG key has no counterpart and is not carried.
+
+On a ("data", "model") mesh (``core/mesh.create_mesh_2d``) the trainer
+builds each rank's shards: ``*_state_from_jax`` cuts them out of the
+whole tree (``core/mesh.tp_shard_tree``: params, Adam's ``mu``/``nu``,
+the EMA teacher, the queues' ``feats``), and ``*_state_to_jax`` gathers
+them back into the whole tree on every rank (``tp_gather_tree``, a
+collective of the model ranks), so a checkpoint written over the mesh is
+the ``state.npz`` one process writes.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from cmlpl_tpu_torch.core.mesh import tp_gather_tree, tp_of, tp_shard_tree
 from cmlpl_tpu_torch.models import common
 from cmlpl_tpu_torch.models.basenet import FEAT_DIM, joint_dim
 
@@ -159,10 +168,12 @@ def _carry_adam(opt: torch.optim.Adam, module: torch.nn.Module,
                 adam) -> None:
     """One optax ``ScaleByAdamState`` into ``opt``'s state for the params of
     ``module`` that its moments name (``mu``/``nu``/``count`` -> torch
-    ``exp_avg``/``exp_avg_sq``/``step``, under the params' transposes)."""
+    ``exp_avg``/``exp_avg_sq``/``step``, under the params' transposes),
+    cut to the module's shards."""
+    tp = tp_of(module)
     step = torch.tensor(float(np.asarray(adam.count)))
-    mu = state_dict_from_jax(adam.mu)
-    nu = state_dict_from_jax(adam.nu)
+    mu = state_dict_from_jax(tp_shard_tree(adam.mu, tp))
+    nu = state_dict_from_jax(tp_shard_tree(adam.nu, tp))
     params = dict(module.named_parameters())
     for key, m in mu.items():
         p = params[key]
@@ -174,7 +185,8 @@ def _adam_to_jax(opt: torch.optim.Adam, module: torch.nn.Module) -> dict:
     """The optax ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) of
     ``opt``'s moments for the params of ``module`` that it steps: the
     inverse of :func:`_carry_adam`.  A param with no state yet (no step
-    taken) has optax's initial zeros."""
+    taken) has optax's initial zeros.  A sharded module's moments are
+    gathered whole."""
     names = {p: n for n, p in module.named_parameters()}
     mu, nu, count = {}, {}, 0
     for group in opt.param_groups:
@@ -185,15 +197,23 @@ def _adam_to_jax(opt: torch.optim.Adam, module: torch.nn.Module) -> dict:
                 count = int(st["step"])
             else:
                 mu[names[p]] = nu[names[p]] = torch.zeros_like(p)
-    return {"count": np.int32(count), "mu": params_to_jax(mu),
-            "nu": params_to_jax(nu)}
+    tp = tp_of(module)
+    return {"count": np.int32(count),
+            "mu": tp_gather_tree(params_to_jax(mu), tp),
+            "nu": tp_gather_tree(params_to_jax(nu), tp)}
+
+
+def whole_params(module: torch.nn.Module) -> dict:
+    """The flax param tree of ``module``, its shards gathered whole (a
+    collective of the model ranks when it holds shards)."""
+    return tp_gather_tree(params_to_jax(module.state_dict()), tp_of(module))
 
 
 def _net_to_jax(net) -> dict:
     """A ``NetState`` as the JAX package's: params and the optax state
     ``(ScaleByAdamState, EmptyState)``, whose second entry has no
     leaves."""
-    return {"params": params_to_jax(net.model.state_dict()),
+    return {"params": whole_params(net.model),
             "opt_state": {"0": _adam_to_jax(net.opt, net.model)}}
 
 
@@ -220,9 +240,11 @@ def cmlpl_state_from_jax(tree, trainer, run_seed: int = 0):
     state = trainer.new_state(tree.net_b.params, tree.net_e.params,
                               run_seed)
     _two_nets_from_jax(tree, state)
-    for jq, q in ((tree.queue_w, state.queue_w),
-                  (tree.queue_s, state.queue_s)):
-        q.feats.copy_(torch.tensor(np.asarray(jq.feats, np.float32)))
+    for name in ("queue_w", "queue_s"):
+        jq, q = getattr(tree, name), getattr(state, name)
+        feats = tp_shard_tree({name: {"feats": np.asarray(
+            jq.feats, np.float32)}}, tp_of(state.net_b.model))[name]["feats"]
+        q.feats.copy_(torch.tensor(feats))
         q.probs.copy_(torch.tensor(np.asarray(jq.probs, np.float32)))
         q.ptr = int(np.asarray(jq.ptr))
     if state.bank is not None:
@@ -242,6 +264,9 @@ def cmlpl_state_to_jax(state) -> dict:
         q = getattr(state, name)
         tree[name] = {"feats": _numpy(q.feats), "probs": _numpy(q.probs),
                       "ptr": np.int32(q.ptr)}
+        # split with the nets
+        tree.update(tp_gather_tree({name: tree[name]},
+                                   tp_of(state.net_b.model)))
     tree["step"] = np.int32(state.step)
     if state.bank is not None:
         tree["bank"] = {name: _numpy(getattr(state.bank, name))
@@ -285,7 +310,7 @@ def cct_state_from_jax(tree, trainer, run_seed: int = 0):
 def cct_state_to_jax(state) -> dict:
     """The JAX package's ``CCTTrainState`` tree of a port CCT state,
     without the key: the inverse of :func:`cct_state_from_jax`."""
-    return {"params": params_to_jax(state.model.state_dict()),
+    return {"params": whole_params(state.model),
             "opt_base": {"0": _adam_to_jax(state.opt_base, state.model)},
             "opt_aug": {"0": _adam_to_jax(state.opt_aug, state.model)},
             "step": np.int32(state.step)}
@@ -459,13 +484,14 @@ def supervised_state_to_jax(state) -> dict:
     batch_stats, the Adam state, step, and the EMA teacher's
     ``{"params", "batch_stats"}`` ({} without one)."""
     sd = state.model.state_dict()
-    tree = {"params": params_to_jax(sd), "batch_stats": batch_stats_to_jax(sd),
+    tree = {"params": whole_params(state.model),
+            "batch_stats": batch_stats_to_jax(sd),
             "opt_state": {"0": _adam_to_jax(state.opt, state.model)},
             "step": np.int32(state.step), "ema": {}}
     if state.ema is not None:
-        esd = state.ema.state_dict()
-        tree["ema"] = {"params": params_to_jax(esd),
-                       "batch_stats": batch_stats_to_jax(esd)}
+        tree["ema"] = {"params": whole_params(state.ema),
+                       "batch_stats": batch_stats_to_jax(
+                           state.ema.state_dict())}
     return tree
 
 
@@ -483,7 +509,8 @@ def supervised_state_from_jax(tree, trainer, run_seed: int = 0):
     state.step = int(np.asarray(tree.step))
     ema = getattr(tree, "ema", None)
     if state.ema is not None and ema:
-        sd = state_dict_from_jax(ema["params"],
+        sd = state_dict_from_jax(tp_shard_tree(ema["params"],
+                                               tp_of(state.ema)),
                                  batch_stats=ema.get("batch_stats") or None)
         state.ema.load_state_dict({k: v.to(trainer.device)
                                    for k, v in sd.items()})

@@ -405,16 +405,17 @@ def free_port() -> int:
 
 
 def run_ranks(task: str, out_dir: str, world: int = 2, timeout=240,
-              **kwargs) -> list:
+              script: str | None = None, **kwargs) -> list:
     """Runs ``task(mesh, **kwargs)`` on ``world`` gloo ranks, one process
-    each; returns each rank's result, in rank order.  A rank that fails
-    fails the caller with its output."""
+    each (of ``script``, a worker with this file's command line: this
+    file by default); returns each rank's result, in rank order.  A rank
+    that fails fails the caller with its output."""
     os.makedirs(out_dir, exist_ok=True)
     env = dict(os.environ, MASTER_ADDR="localhost",
                MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
                OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), task, out_dir,
+        [sys.executable, os.path.abspath(script or __file__), task, out_dir,
          json.dumps(kwargs)], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
