@@ -103,7 +103,20 @@ process group (``multihost_world1``: OA within 1.0 point, one pool and
 against the step with no group, the all-reduce and the draws every rank
 repeats), and ``cli.train_backbone --multihost --model ssrn`` the same
 way (``multihost_world1_zoo``: OA within 1.0 point, 100 and 406
-launches, the BatchNorm all-reduces a step and their bytes).  Every
+launches, the BatchNorm all-reduces a step and their bytes).  Then
+serving over ranks: on the two gloo ranks
+(``multihost_shared_card_serve``), ``serve --multihost`` of random
+weights on a PaviaU-size request and two bad ones (a missing cube, a
+cube of 102 bands), in the default gather
+(kernel 1, its warm-up through the broadcast too),
+``--eval_gather pallas_bf16`` (kernel 2) and ``dense``: 203 launches a
+rank a map by the wrappers and (kernels 1 and 2) the profiler, none
+dense, rank 0's labels bitwise the one-rank map (dense
+tie-safe), rank 1's stdout empty and its stdin unread, the scene
+broadcast's bytes and ms; ``predict --multihost --checkpoint_dir`` of the
+2-epoch run, bitwise the one-rank ``predict``; and in a one-rank NCCL
+world beside no group (``multihost_world1_serve``): the labels bitwise,
+406 launches each, ``latency_s`` of both.  Every
 phase prints one JSON line, with ``at_s``, its process's seconds since it
 started; the card's name and power limit, then a ``kernels`` line
 (launches on the main path, error, times, bounds, launch plans and B = 1
@@ -267,17 +280,22 @@ def cuda_ms(fn, args_list, rounds: int = TIMING_ROUNDS) -> float:
 
 
 def profiled(fn, args_list):
-    """One pass of ``fn(*args)`` over ``args_list`` under the profiler:
-    returns (device ms per kernel name, launches per kernel name, wall ms)."""
+    """One pass of ``fn(*args)`` over ``args_list`` under the profiler,
+    after ``CUPTI_SETTLE_S`` of wait (CUPTI may drop the records of the
+    kernels launched first): returns (device ms per kernel name, launches
+    per kernel name, wall ms of the pass)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from cmlpl_tpu_torch.utils.profiling import CUPTI_SETTLE_S
+
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(CUPTI_SETTLE_S)
+        t0 = time.perf_counter()
         for args in args_list:
             fn(*args)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     dev_ms, counts = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", None)
@@ -3835,6 +3853,223 @@ def shared_card_zoo(mesh, cube, gt, device, tmp) -> dict:
     return out
 
 
+#: serve --multihost's cases on the two gloo ranks: the default gather
+#: (auto: kernel 1) with its warm-up, kernel 2 and dense
+MH_SERVE = {"auto": [], "pallas_bf16": ["--eval_gather", "pallas_bf16",
+                                        "--no_warmup"],
+            "dense": ["--eval_gather", "dense", "--no_warmup"]}
+#: a prepared PaviaU scene's bytes (the padded f32 PCA cube, the f32
+#: spectra, the int32 labels): what broadcast_scene carries
+SCENE_BYTES = ((610 + W) * (340 + W) * N_PC + 610 * 340 * 103
+               + 610 * 340) * 4
+
+
+def serve_inputs(tmp, cube, write: bool) -> tuple:
+    """(the serving argv: ``--data_root tmp``, PaviaU width, tiles of
+    TILE; ``--weights``: random BaseNet2 weights from SEED) and, with
+    ``write``, those weights, ``cube`` as ``tmp/paviau.npy`` and a small
+    cube of 102 bands as ``tmp/bands.npy`` written now."""
+    from cmlpl_tpu_torch.registry import get_dataset
+    from cmlpl_tpu_torch.weights import init_basenet2_params, save_params_npz
+
+    weights = os.path.join(tmp, "w.npz")
+    if write:
+        os.makedirs(tmp, exist_ok=True)
+        spec = get_dataset(DATA_ID)
+        save_params_npz(weights, init_basenet2_params(
+            SEED, n_pc=N_PC, num_features=spec.num_bands,
+            num_classes=spec.num_classes, patch_size=W))
+        np.save(os.path.join(tmp, "paviau.npy"), cube)
+        np.save(os.path.join(tmp, "bands.npy"), cube[:16, :16, :102])
+    return ["--dataID", str(DATA_ID), "--n_PC", str(N_PC), "--w", str(W),
+            "--val_batch_size", str(TILE), "--data_root", tmp], weights
+
+
+def serve_requests(tmp, out_dir) -> str:
+    """serve's stdin: the PaviaU-size cube of :func:`serve_inputs`, its
+    labels to ``out_dir/good.npy``, a request for a missing cube and one
+    for the cube of 102 bands (refused on rank 0)."""
+    return "".join(json.dumps(r) + "\n" for r in (
+        {"id": "good", "cube": os.path.join(tmp, "paviau.npy"),
+         "out": os.path.join(out_dir, "good.npy")},
+        {"id": "bad", "cube": os.path.join(tmp, "missing.npy"),
+         "out": os.path.join(out_dir, "bad.npy")},
+        {"id": "bands", "cube": os.path.join(tmp, "bands.npy"),
+         "out": os.path.join(out_dir, "bands.npy")}))
+
+
+def serve_run(argv, stdin_text: str) -> dict:
+    """``cli.serve.main(argv)`` on ``stdin_text`` with all it writes to
+    stdout captured: its response lines (each one JSON) and the kernel
+    launches (both wrappers) between them, how far it read its stdin, its
+    scene broadcasts (calls, bytes, host ms a call), each wrapper's
+    launches and the wall s."""
+    from cmlpl_tpu_torch.cli import serve
+    from cmlpl_tpu_torch.core.mesh import SCENE_BROADCASTS
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    SCENE_BROADCASTS.reset()
+    stdin = io.StringIO(stdin_text)
+    log = ResponseLog(lambda: sum(w.launches for w in WRAPPERS))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        serve.main(argv, stdin=stdin)
+    wall_s = time.perf_counter() - t0
+    b = SCENE_BROADCASTS
+    return {"responses": [json.loads(ln)
+                          for ln in log.getvalue().splitlines()],
+            "stdout_chars": len(log.getvalue()),
+            "launches_per_line": np.diff([0] + log.counts).tolist(),
+            "stdin_read": stdin.tell(),
+            "broadcasts": {"calls": b.calls, "bytes": b.bytes,
+                           "ms_per_call": b.seconds * 1e3 / max(b.calls, 1)},
+            "launches": [w.launches for w in WRAPPERS], "wall_s": wall_s}
+
+
+def hold_serve(what: str, run: dict, maps: int, launches: list,
+               primary: bool) -> None:
+    """A serve run of :func:`serve_run` on :func:`serve_requests`: rank 0
+    answered ready, the good request and the two bad ones (errors), the
+    other ranks wrote and read nothing; ``maps`` scene broadcasts of
+    SCENE_BYTES each (none without a group), and the wrappers'
+    ``launches``."""
+    require(run["launches"] == launches,
+            f"{what}: launches {run['launches']}, want {launches}")
+    require(run["broadcasts"]["calls"] == maps
+            and run["broadcasts"]["bytes"] == maps * SCENE_BYTES,
+            f"{what}: scene broadcasts {run['broadcasts']}, want {maps}")
+    if not primary:
+        require(run["stdout_chars"] == 0 and run["stdin_read"] == 0,
+                f"{what}: a rank other than 0 wrote {run['stdout_chars']} "
+                f"characters to stdout and read {run['stdin_read']} of "
+                "stdin")
+        return
+    res = run["responses"]
+    require(len(res) == 4 and res[0].get("ready") is True
+            and res[1].get("id") == "good" and "error" not in res[1]
+            and res[1].get("pixels") == 610 * 340
+            and "FileNotFoundError" in res[2].get("error", "")
+            and res[3].get("id") == "bands"
+            and res[3].get("error", "").startswith("ValueError"),
+            f"{what}: responses {res}")
+
+
+def shared_card_serve(mesh, cube, device, tmp, trainer, state) -> dict:
+    """``serve --multihost`` and ``predict --multihost`` on the two gloo
+    ranks of :func:`run_shared_card_rank`, the files under ``tmp``: serve
+    of random BaseNet2 weights on each MH_SERVE case's requests (the
+    default, kernel 1, with its warm-up, and kernel 2 under the
+    profiler), rank 0's
+    good-request labels held to the one-rank map of the same weights and
+    scene (bitwise; dense tie-safe); then ``predict --multihost
+    --checkpoint_dir`` of the 2-epoch run's checkpoint, its map on rank 0
+    held bitwise to the one-rank ``predict``'s."""
+    from cmlpl_tpu_torch.cli import predict
+    from cmlpl_tpu_torch.cli._common import logits_fn
+    from cmlpl_tpu_torch.core.mesh import barrier
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.eval.inference import (ScenePredictor,
+                                                dense_scene_logits)
+    from cmlpl_tpu_torch.models.basenet import BaseNet2
+    from cmlpl_tpu_torch.ops.patch_gather import WRAPPERS
+    from cmlpl_tpu_torch.registry import get_dataset
+    from cmlpl_tpu_torch.utils.checkpoint import save_checkpoint
+    from cmlpl_tpu_torch.weights import load_params_npz, state_dict_from_jax
+
+    files = os.path.join(tmp, "serve")
+    primary = mesh.rank == 0
+    common, weights = serve_inputs(files, cube, write=primary)
+    ckpt = os.path.join(files, "ckpt")
+    save_checkpoint(ckpt, trainer, state)
+    barrier(mesh)
+    out = {"serve": {}}
+    for name, extra in MH_SERVE.items():
+        out_dir = os.path.join(files, name)
+        os.makedirs(out_dir, exist_ok=True)
+        argv = common + ["--weights", weights, "--multihost", "--device",
+                         "cuda", *extra]
+        maps = 2 if name == "auto" else 1   # the warm-up's map too
+        want = {"auto": [2 * 203, 0], "pallas_bf16": [0, 203],
+                "dense": [0, 0]}[name]
+        if name == "dense":     # no kernel to count
+            run = serve_run(argv, serve_requests(files, out_dir))
+        else:
+            # the whole run in one session: the records CUPTI may drop
+            # at a session's start (profiled waits for them) are then
+            # never a map's
+            box = {}
+            _, counts, _ = profiled(lambda: box.update(run=serve_run(
+                argv, serve_requests(files, out_dir))), [()])
+            run = box["run"]
+            run["kernel_launches_profiler"] = sum(
+                n for k, n in counts.items() if KERNEL_NEEDLE in k)
+            require(run["kernel_launches_profiler"] == sum(want),
+                    f"serve --multihost {name}, rank {mesh.rank}: the "
+                    f"profiler saw {run['kernel_launches_profiler']} "
+                    "launches")
+        hold_serve(f"serve --multihost {name}, rank {mesh.rank}", run,
+                   maps, want, primary)
+        out["serve"][name] = run
+    if primary:
+        spec = get_dataset(DATA_ID)
+        model = BaseNet2(num_features=spec.num_bands,
+                         num_classes=spec.num_classes, n_pc=N_PC,
+                         patch_size=W)
+        model.load_state_dict(state_dict_from_jax(load_params_npz(weights)))
+        model = model.to(device).eval()
+        scene = prepare_scene(DATA_ID, cube=cube,
+                              gt=np.zeros(cube.shape[:2], np.int64),
+                              patch_size=W, n_pc=N_PC, device=device)
+        for name in MH_SERVE:
+            got = np.load(os.path.join(files, name, "good.npy"))
+            gather = "pallas" if name == "auto" else name
+            one = ScenePredictor(logits_fn(model), params=model.state_dict(),
+                                 patch_size=W, cols=scene.cols, tile=TILE,
+                                 gather=gather)(scene)
+            if name == "dense":
+                with torch.inference_mode():
+                    logits = dense_scene_logits(model.state_dict(), scene)
+                tie_safe_equal(got, one, lambda ids: logits[
+                    torch.from_numpy(ids).to(device)],
+                    "serve --multihost dense vs the one-rank dense map")
+            else:
+                require(np.array_equal(got, one),
+                        f"serve --multihost {name}: the labels are not "
+                        "bitwise the one-rank map")
+            out["serve"][name]["differing_pixels_vs_one_rank"] = int(
+                (got != one).sum())
+    # predict --multihost of the run's checkpoint, then on rank 0 alone
+    argv = common + ["--checkpoint_dir", ckpt, "--device", "cuda"]
+    outs = [os.path.join(files, f"predict_{r}.svg") for r in range(2)]
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+    labels, lines, _ = run_cli(predict.main, argv + [
+        "--multihost", "--out", outs[mesh.rank]], lambda: 0)
+    out["predict_launches"] = [w.launches for w in WRAPPERS]
+    require(out["predict_launches"] == [203, 0],
+            f"predict --multihost, rank {mesh.rank}: launches "
+            f"{out['predict_launches']}")
+    require(("multihost: 2 process(es)" in lines)
+            and any(ln.startswith(" OA=") for ln in lines),
+            f"predict --multihost printed {lines[-6:]}")
+    out["predict_digest"] = hashlib.sha256(labels.tobytes()).hexdigest()
+    barrier(mesh)
+    if primary:
+        one, _, _ = run_cli(predict.main, argv + [
+            "--out", os.path.join(files, "predict_one.svg")], lambda: 0)
+        require(np.array_equal(labels, one),
+                "predict --multihost --checkpoint_dir: the map is not "
+                "bitwise the one-rank predict's")
+        require(not os.path.exists(outs[1]), "rank 1 wrote --out")
+        with open(outs[0], "rb") as f, \
+                open(os.path.join(files, "predict_one.svg"), "rb") as g:
+            require(f.read() == g.read(),
+                    "predict --multihost: rank 0's --out differs")
+    return out
+
+
 def run_shared_card_rank(tmp) -> dict:
     """One of two gloo ranks on ``cuda:0`` (torchrun's environment set by
     :func:`phase_multihost_shared_card`), through the library: gloo's
@@ -3846,7 +4081,8 @@ def run_shared_card_rank(tmp) -> dict:
     and by the profiler; rank 0 also maps the whole scene on one rank) and
     its dense map in strips of scene rows (rank 0 also maps it whole), a
     one-step call's pool under the profiler, a step's all-reduce; then
-    the zoo (:func:`shared_card_zoo`), its CLI's files under ``tmp``."""
+    the zoo (:func:`shared_card_zoo`) and serve and predict over the
+    ranks (:func:`shared_card_serve`), their CLIs' files under ``tmp``."""
     import torch.distributed as dist
 
     from cmlpl_tpu_torch.cli._common import logits_fn
@@ -3990,6 +4226,7 @@ def run_shared_card_rank(tmp) -> dict:
     out["all_reduce"] = {"bytes": numel * 4,
                          "ms": timed_all_reduce_ms(numel, device)}
     out["zoo"] = shared_card_zoo(mesh, cube, gt, device, tmp)
+    out["serve"] = shared_card_serve(mesh, cube, device, tmp, trainer, state)
     dist.destroy_process_group()
     return out
 
@@ -4067,6 +4304,14 @@ def phase_multihost_shared_card(children) -> dict:
     require(r0["map_equals_one_rank_map"],
             "the two-rank map is not bitwise the one-rank map")
     require(r0["oa_net_b"] > 0.5, f"OA net B {r0['oa_net_b']}")
+    s0, s1 = r0["serve"], r1["serve"]
+    require(s0["predict_digest"] == s1["predict_digest"],
+            "predict --multihost: the ranks' maps differ")
+    require(s0["serve"]["auto"]["launches_per_line"] == [203, 203, 0, 0]
+            and s0["serve"]["pallas_bf16"]["launches_per_line"]
+            == [0, 203, 0, 0],
+            "serve --multihost: rank 0's launches a response "
+            f"{ {k: v['launches_per_line'] for k, v in s0['serve'].items()} }")
     emit({"phase": "multihost_shared_card", "ranks": 2, "backend": "gloo",
           "device": "cuda:0 (both ranks)",
           "gloo_cuda_tensors": r0["gloo_cuda"],
@@ -4095,6 +4340,40 @@ def phase_multihost_shared_card(children) -> dict:
                         "differing_pixels_vs_one_rank":
                         r0["dense_differing_pixels"],
                         "oa_net_b": r0["dense_oa_net_b"]}})
+    emit({"phase": "multihost_shared_card_serve", "ranks": 2,
+          "backend": "gloo", "scene": "synthetic_scene(1), 610 x 340 x 103",
+          "weights": f"random BaseNet2 from seed {SEED}",
+          "serve": {name: {
+              "latency_s": s0["serve"][name]["responses"][1]["latency_s"],
+              "warmup_s": s0["serve"][name]["responses"][0].get("warmup_s"),
+              "scene_broadcast": {
+                  "calls": s0["serve"][name]["broadcasts"]["calls"],
+                  "bytes_per_call": SCENE_BYTES,
+                  "ms_per_call_per_rank": [
+                      r["serve"]["serve"][name]["broadcasts"]["ms_per_call"]
+                      for r in ranks]},
+              "launches_per_rank": [r["serve"]["serve"][name]["launches"]
+                                    for r in ranks],
+              "kernel_launches_profiler_per_rank": [
+                  r["serve"]["serve"][name].get("kernel_launches_profiler")
+                  for r in ranks],
+              "launches_per_response_rank0":
+              s0["serve"][name]["launches_per_line"],
+              "differing_pixels_vs_one_rank":
+              s0["serve"][name]["differing_pixels_vs_one_rank"],
+              "wall_s_per_rank": [r["serve"]["serve"][name]["wall_s"]
+                                  for r in ranks]}
+              for name in MH_SERVE},
+          "rank1_stdout_chars": [s1["serve"][n]["stdout_chars"]
+                                 for n in MH_SERVE],
+          "predict_checkpoint": {
+              "launches_per_rank": [r["serve"]["predict_launches"]
+                                    for r in ranks],
+              "map_equals_one_rank_predict": True},
+          "note": "two ranks share one card and gloo carries the scene "
+                  "through the host, and the runs of kernels 1 and 2 are "
+                  "profiled: latency_s and the broadcast's ms are not a "
+                  "speed figure"})
     z0 = r0["zoo"]
     emit({"phase": "multihost_shared_card_zoo", "ranks": 2,
           "backend": "gloo", "batch": z0["batch"],
@@ -4111,7 +4390,10 @@ def phase_multihost_shared_card(children) -> dict:
             "over_budget": r0["over_budget_3_step_launches"][0],
             "zoo_steps": r0["zoo"]["step_launches"][0],
             "zoo_train": r0["zoo"]["cli"]["launches_training"][0],
-            "zoo_map": r0["zoo"]["cli"]["launches_map"][0]}
+            "zoo_map": r0["zoo"]["cli"]["launches_map"][0],
+            "serve": s0["serve"]["auto"]["launches_per_line"][1],
+            "serve_bf16": s0["serve"]["pallas_bf16"]["launches_per_line"][1],
+            "predict": s0["predict_launches"][0]}
 
 
 #: the model axis of the 2-D mesh of four gloo ranks on one card (2 x 2)
@@ -4433,13 +4715,16 @@ def phase_tp_shared_card(children) -> dict:
             "bf16": r0["step_launches"]["cmlpl_bf16"][1]}
 
 
-def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
+def phase_multihost_world1(tmp, cube, tscene, counter_fn) -> dict:
     """``cli.train --multihost`` as a one-rank NCCL world (torchrun's
     environment), 2 epochs of the default f32 cell, beside the same run
     with no process group: the OA within 1.0 point, one pool launch and
     406 map launches, ``ms_per_step`` of each; one step over the world
     against the step without it (step-1 gradients); a step's all-reduce
-    and the draws every rank duplicates.  The group is destroyed after."""
+    and the draws every rank duplicates; ``serve --multihost`` of random
+    weights on :func:`serve_requests` beside ``serve`` with no group (the
+    labels bitwise, 406 launches each, ``latency_s`` and the scene
+    broadcast of each).  The group is destroyed after."""
     import torch.distributed as dist
 
     from cmlpl_tpu_torch.cli import train as cli_train
@@ -4451,6 +4736,14 @@ def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
     (b0, e0), plain = train_cli_run(cli_train.main, os.path.join(tmp, "p"),
                                     "plain", counter_fn, maps, epochs=2)
     zoo_acc0, zoo_plain = zoo_cli_run(os.path.join(tmp, "zp"), counter_fn)
+    serve_tmp = os.path.join(tmp, "serve")
+    common, weights = serve_inputs(serve_tmp, cube, write=True)
+    serve_argv = common + ["--weights", weights, "--no_warmup"]
+    outs = {k: os.path.join(serve_tmp, k) for k in ("no_group", "world1")}
+    for d in outs.values():
+        os.makedirs(d)
+    serve_plain = serve_run(serve_argv,
+                            serve_requests(serve_tmp, outs["no_group"]))
     env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
            "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
     os.environ.update(env)
@@ -4468,6 +4761,8 @@ def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
                                                 / zoo_world["steps"])
         zoo_world["bn_all_reduce_bytes_per_step"] = (all_reduce_sum.bytes
                                                      / zoo_world["steps"])
+        serve_world = serve_run(serve_argv + ["--multihost"],
+                                serve_requests(serve_tmp, outs["world1"]))
         mesh = create_mesh()
         li, ly, ui = (a[0] for a in default_schedule(tscene.labels, 1))
         first = (li[0], ly[0], ui[0])
@@ -4513,6 +4808,13 @@ def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
                 f"train_backbone --model {MH_ZOO_MODEL} launches {rep}")
     require(zoo_world["bn_all_reduces_per_step"] > 0,
             "no BatchNorm all-reduce over the world of one")
+    hold_serve("serve, no group", serve_plain, 0, [406, 0], True)
+    hold_serve("serve --multihost, a world of one", serve_world, 1, [406, 0],
+               True)
+    require(np.array_equal(
+        *(np.load(os.path.join(d, "good.npy")) for d in outs.values())),
+        "serve --multihost in a world of one: the labels are not bitwise "
+        "the labels with no group")
     emit({"phase": "multihost_world1", "backend": "nccl", "world": 1,
           "epochs": 2, "ms_per_step": world["ms_per_step"],
           "ms_per_step_no_group": plain["ms_per_step"],
@@ -4528,10 +4830,25 @@ def phase_multihost_world1(tmp, tscene, counter_fn) -> dict:
     emit({"phase": "multihost_world1_zoo", "backend": "nccl", "world": 1,
           "model": MH_ZOO_MODEL, "epochs": ZOO_EPOCHS, "world1": zoo_world,
           "no_group": zoo_plain})
+    emit({"phase": "multihost_world1_serve", "backend": "nccl", "world": 1,
+          "scene": "synthetic_scene(1), 610 x 340 x 103",
+          "latency_s": serve_world["responses"][1]["latency_s"],
+          "latency_s_no_group": serve_plain["responses"][1]["latency_s"],
+          "scene_broadcast": {"calls": serve_world["broadcasts"]["calls"],
+                              "bytes_per_call": SCENE_BYTES,
+                              "ms_per_call":
+                              serve_world["broadcasts"]["ms_per_call"]},
+          "launches_per_response": serve_world["launches_per_line"],
+          "launches_per_response_no_group":
+          serve_plain["launches_per_line"],
+          "wall_s": serve_world["wall_s"],
+          "wall_s_no_group": serve_plain["wall_s"],
+          "labels_equal_no_group": True})
     return {"train": world["launches_training"]["gather_patches_f32"],
             "map": world["launches_per_map"]["net B"]["gather_patches_f32"],
             "zoo_train": zoo_world["launches_training"][0],
-            "zoo_map": zoo_world["launches_map"][0]}
+            "zoo_map": zoo_world["launches_map"][0],
+            "serve": serve_world["launches_per_line"][1]}
 
 
 def watch_host_memory(low: list, stop: threading.Event) -> None:
@@ -4915,7 +5232,7 @@ def main() -> int:
     # 10. multi-card data parallel (slice 12): cli.train --multihost as a
     # one-rank NCCL world beside the run with no process group
     with tempfile.TemporaryDirectory() as tmp:
-        world1 = phase_multihost_world1(tmp, tscene, counter_fn)
+        world1 = phase_multihost_world1(tmp, cube, tscene, counter_fn)
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"]
                 + export["launches"],
@@ -4978,7 +5295,13 @@ def main() -> int:
             "a 2 x 2 mesh of four gloo ranks on one card, CMLPL 1 epoch "
             "(pool), training, each rank": tp_card["train"],
             "a 2 x 2 mesh of four gloo ranks on one card, net B's map of "
-            "its gathered weights, each rank's strip": tp_card["map"]},
+            "its gathered weights, each rank's strip": tp_card["map"],
+            "two gloo ranks on one card, serve --multihost (auto), a "
+            "request's map, each rank's strip": shared_card["serve"],
+            "two gloo ranks on one card, predict --multihost "
+            "--checkpoint_dir, each rank's strip": shared_card["predict"],
+            "serve --multihost, a one-rank NCCL world, a request's map":
+            world1["serve"]},
         "patch_gather_bf16": {
             "cli.train --gather_impl pallas_bf16, training":
             per_step["pallas_bf16"]["launches_training"][1],
@@ -4994,7 +5317,10 @@ def main() -> int:
             "two gloo ranks on one card, one bf16 CMLPL step (pool), each "
             "rank": shared_card["bf16"],
             "a 2 x 2 mesh of four gloo ranks on one card, one bf16 CMLPL "
-            "step (pool), each rank": tp_card["bf16"]}}
+            "step (pool), each rank": tp_card["bf16"],
+            "two gloo ranks on one card, serve --multihost --eval_gather "
+            "pallas_bf16, a request's map, each rank's strip":
+            shared_card["serve_bf16"]}}
     for name, n in zoo_launches.items():
         flags = " ".join(ZOO_EXTRA.get(name, []))
         launches_train["patch_gather_f32"][

@@ -13,13 +13,16 @@ train, train_cps and train_cct read :func:`train_parser`: its
 the JAX package's directory contract in a format of the port's own), and
 that predict and serve map with.
 
-``--multihost`` (train, train_cps, train_cct, train_backbone,
-export_model) joins the ``torchrun`` world before anything else
-(:func:`setup_runtime`, a no-op for one process): one process a card, the
-trainers data parallel over the ranks and the map split into one strip a
-rank, of tiles or, dense, of scene rows (``core/mesh.py``).  Rank 0
-writes the files (``core/mesh.is_primary``); every rank prints its
-results.
+``--multihost`` (every CLI but sample_generation) joins the ``torchrun``
+world before anything else (:func:`setup_runtime`, a no-op for one
+process): one process a card, the trainers data parallel over the ranks
+and every map split into one strip a rank, of tiles or, dense, of scene
+rows (``core/mesh.py``).  Rank 0 reads ``--weights``, ``--checkpoint_dir``
+(for ``--resume`` too) and, in predict and serve, the scene and the
+requests, and broadcasts what it read; rank 0 writes the files
+(``core/mesh.is_primary``) and serve's responses; every rank prints its
+results but serve's ranks, whose stdout carries the responses of rank 0
+alone.
 """
 
 from __future__ import annotations
@@ -101,6 +104,13 @@ def base_parser() -> argparse.ArgumentParser:
     """The flags of predict and serve."""
     p = _shared_parser()
     _map_source_flags(p)
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun world (MASTER_ADDR, MASTER_PORT, "
+                        "RANK, WORLD_SIZE, LOCAL_RANK; NCCL between cards, "
+                        "gloo with --device cpu) and map each scene in one "
+                        "strip a rank, one process a card; rank 0 reads the "
+                        "weights, the scene and the requests; a no-op for "
+                        "one process")
     return p
 
 
@@ -239,13 +249,14 @@ def train_parser() -> argparse.ArgumentParser:
     return p
 
 
-def setup_runtime(args) -> None:
+def setup_runtime(args, file=None) -> None:
     """Process-level set-up before any device work: with --multihost,
     joins the torchrun world (``core/mesh.initialize_multihost``, a no-op
-    for one process) on ``--device``'s backend."""
+    for one process) on ``--device``'s backend, and says so on ``file``
+    (default: stdout)."""
     if getattr(args, "multihost", False):
         n = initialize_multihost(device=args.device)
-        print(f"multihost: {n} process(es)")
+        print(f"multihost: {n} process(es)", file=file)
 
 
 def build_config(args, spec) -> CMLPLConfig:
@@ -333,17 +344,25 @@ def save_history(args, history) -> None:
     print(f"wrote {args.metrics_csv} ({len(history)} steps)")
 
 
-def build_model(args, spec, device) -> BaseNet2:
+def build_model(args, spec, device, mesh=None) -> BaseNet2:
     """BaseNet2 for ``spec`` with the params of ``--weights`` or of net
     ``--net`` of ``--checkpoint_dir``'s latest checkpoint (exactly one of
-    the two), in eval mode."""
+    the two), in eval mode.  Over ``mesh`` rank 0 alone reads the file
+    (the others may not see it) and broadcasts the params, or the error
+    it met, which every rank then raises."""
     if bool(args.weights) == bool(args.checkpoint_dir):
         raise SystemExit("give one of --weights and --checkpoint_dir"
                          + (", not both" if args.weights else ""))
-    if args.weights:
-        params = load_params_npz(args.weights)
-    else:
-        params = load_net_params(args.checkpoint_dir, args.net)
+    params = error = None
+    if mesh is None or is_primary(mesh):
+        try:
+            params = (load_params_npz(args.weights) if args.weights else
+                      load_net_params(args.checkpoint_dir, args.net))
+        except Exception as e:  # every rank raises it, below
+            error = e
+    params, error = broadcast_object((params, error), mesh)
+    if error is not None:
+        raise error
     model = BaseNet2(num_features=spec.num_bands, dropout=args.dropout,
                      num_classes=spec.num_classes, n_pc=args.n_PC,
                      patch_size=args.w, compute_dtype=args.compute_dtype)

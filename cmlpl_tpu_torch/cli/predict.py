@@ -8,6 +8,17 @@ Counterpart of ``cmlpl_tpu/cli/predict.py``: net ``--net`` of the latest
 checkpoint of ``--checkpoint_dir`` (the port's ``state.npz``, written by
 ``cli.train`` or ``cli.train_cps``), or ``--weights`` (a JAX-layout npz,
 see :mod:`cmlpl_tpu_torch.weights`).
+
+``--multihost`` under ``torchrun`` (one process a card) maps the scene in
+one strip a rank, as the JAX CLI maps it over its local devices: rank 0
+reads the weights and prepares the scene, both are broadcast
+(``core/mesh.broadcast_scene``), each rank maps its strip of tiles (or,
+dense, of scene rows) and the labels are gathered to every rank.  Every
+rank prints its timing and accuracy lines and returns the whole map;
+rank 0 alone writes ``--out``.  A fault on one rank ends the world.
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m cmlpl_tpu_torch.cli.predict --multihost --dataID 1 --weights w.npz
 """
 
 from __future__ import annotations
@@ -15,7 +26,10 @@ from __future__ import annotations
 import time
 
 from cmlpl_tpu_torch.cli._common import (base_parser, build_model, logits_fn,
-                                         report_accuracy, sync)
+                                         report_accuracy, setup_runtime,
+                                         sync)
+from cmlpl_tpu_torch.core.mesh import (broadcast_scene, create_mesh,
+                                       is_primary)
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.data.splits import generate_splits
 from cmlpl_tpu_torch.device import resolve_device
@@ -29,24 +43,32 @@ def main(argv=None):
     p = base_parser()
     p.add_argument("--out", type=str, default="classification_map.svg")
     args = p.parse_args(argv)
+    setup_runtime(args)
     device = resolve_device(args.device)
+    mesh = create_mesh(device) if args.multihost else None
+    primary = mesh is None or is_primary(mesh)
 
     spec = get_dataset(args.dataID)
-    scene = prepare_scene(spec, root=args.data_root, patch_size=args.w,
-                          n_pc=args.n_PC, device=device)
-    model = build_model(args, spec, device)
+    scene = None
+    if primary:
+        scene = prepare_scene(spec, root=args.data_root, patch_size=args.w,
+                              n_pc=args.n_PC, device=device)
+    scene = broadcast_scene(scene, mesh)
+    model = build_model(args, spec, device, mesh)
     predictor = ScenePredictor(
         logits_fn(model), params=model.state_dict(), patch_size=args.w,
-        cols=scene.cols, tile=args.val_batch_size, gather=args.eval_gather)
+        cols=scene.cols, tile=args.val_batch_size, gather=args.eval_gather,
+        mesh=mesh)
     t0 = time.perf_counter()
     pred = predictor(scene)
     sync(device)
     print(f"classified {scene.num_pixels} pixels in "
           f"{time.perf_counter() - t0:.3f}s")
 
-    save_class_map(args.out, pred + 1, spec, rows=scene.rows,
-                   cols=scene.cols)
-    print(f"wrote {args.out}")
+    if primary:
+        save_class_map(args.out, pred + 1, spec, rows=scene.rows,
+                       cols=scene.cols)
+        print(f"wrote {args.out}")
 
     # if ground truth exists, also report test-split accuracy
     if scene.labels.max() > 0:

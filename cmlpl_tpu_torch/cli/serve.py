@@ -20,6 +20,34 @@ A request that fails gets {"id": ..., "error": "..."} and the loop goes on.
 ``latency_s`` runs from reading the request to the map on the host, after
 a device synchronise.  A scene whose dims differ from the previous
 request's rebuilds the predictor for the new geometry.
+
+``--multihost`` under ``torchrun`` (one process a card) maps each scene
+in one strip a rank, as the JAX CLI maps over its local devices.  Rank 0
+alone reads the weights, stdin and each request's cube, prepares the
+scene, and writes the responses and the ``out`` files; the other ranks
+write nothing to stdout (logs go to stderr), so a client reading
+``torchrun``'s merged stdout sees the one-process protocol.  For each
+request line rank 0 broadcasts a header, and every rank acts on it:
+
+- ``map``: the prepared scene is broadcast
+  (``core/mesh.broadcast_scene``), each rank maps its strip (of tiles,
+  or, dense, of scene rows) and the labels are gathered; rank 0 answers.
+  Its ``latency_s`` includes the broadcast.
+- ``error``: the request's JSON, its cube or its prep failed on rank 0
+  (a cube that is not (rows, cols, the dataset's bands) is refused
+  there), which answers ``{"id", "error"}``; the other ranks wait for the
+  next header.
+- ``stop``: rank 0 reached the end of stdin; every rank leaves the loop
+  and passes a barrier, and ``main`` returns.
+
+The warm-up map goes through the same broadcast on every rank, and rank
+0 alone writes the ``ready`` line.  Over two or more ranks a fault
+inside a rank's map is not caught: no partial map is answered, and the
+world ends with a non-zero exit.  (One process, or a world of one,
+answers it as an error, as before.)
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m cmlpl_tpu_torch.cli.serve --multihost --dataID 1 --weights w.npz
 """
 
 from __future__ import annotations
@@ -31,12 +59,20 @@ import time
 import numpy as np
 
 from cmlpl_tpu_torch.cli._common import (base_parser, build_model, logits_fn,
-                                         sync)
+                                         setup_runtime, sync)
+from cmlpl_tpu_torch.core.mesh import (barrier, broadcast_object,
+                                       broadcast_scene, create_mesh,
+                                       is_distributed, is_primary)
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.inference import ScenePredictor
 from cmlpl_tpu_torch.eval.visualize import save_class_map
 from cmlpl_tpu_torch.registry import get_dataset
+
+
+def _error(req, e: Exception) -> dict:
+    return {"id": req.get("id") if isinstance(req, dict) else None,
+            "error": f"{type(e).__name__}: {e}"}
 
 
 def main(argv=None, stdin=None, stdout=None):
@@ -47,18 +83,34 @@ def main(argv=None, stdin=None, stdout=None):
     args = p.parse_args(argv)
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
+    setup_runtime(args, file=sys.stderr)
     device = resolve_device(args.device)
+    mesh = create_mesh(device) if args.multihost else None
+    # a world of one has no peer to fall out of step with
+    ranks = is_distributed(mesh) and mesh.size > 1
+    primary = mesh is None or is_primary(mesh)
 
     spec = get_dataset(args.dataID)
-    model = build_model(args, spec, device)
+    model = build_model(args, spec, device, mesh)
     predictor = ScenePredictor(
         logits_fn(model), params=model.state_dict(), patch_size=args.w,
-        cols=spec.cols, tile=args.val_batch_size, gather=args.eval_gather)
+        cols=spec.cols, tile=args.val_batch_size, gather=args.eval_gather,
+        mesh=mesh)
 
-    def classify(cube, gt):
-        scene = prepare_scene(spec, root=args.data_root, cube=cube, gt=gt,
-                              patch_size=args.w, n_pc=args.n_PC,
-                              device=device)
+    def prepare(cube, gt):
+        if cube is not None and (cube.ndim != 3
+                                 or cube.shape[2] != spec.num_bands):
+            # refused here, on rank 0: the map would fail on every rank
+            raise ValueError(f"cube of shape {cube.shape}, want (rows, "
+                             f"cols, {spec.num_bands}) for {spec.name}")
+        return prepare_scene(spec, root=args.data_root, cube=cube, gt=gt,
+                             patch_size=args.w, n_pc=args.n_PC,
+                             device=device)
+
+    def classify(scene):
+        """Rank 0's prepared scene (None on the others) on every rank, and
+        its map."""
+        scene = broadcast_scene(scene, mesh)
         # the tile decomposition depends on scene.cols: a geometry change
         # rebuilds the predictor
         nonlocal predictor
@@ -66,52 +118,86 @@ def main(argv=None, stdin=None, stdout=None):
             predictor = ScenePredictor(
                 predictor.model, params=predictor.params, patch_size=args.w,
                 cols=scene.cols, tile=args.val_batch_size,
-                gather=args.eval_gather)
+                gather=args.eval_gather, mesh=mesh)
         pred = predictor(scene)
         sync(device)
         return scene, pred
 
     def respond(obj):
-        stdout.write(json.dumps(obj) + "\n")
-        stdout.flush()
+        if primary:
+            stdout.write(json.dumps(obj) + "\n")
+            stdout.flush()
+
+    def next_request(lines):
+        """Rank 0: the next request's header and job: ("map", (request,
+        its start time, its prepared scene)), ("error", None) once it is
+        answered, or ("stop", None) at the end of stdin."""
+        for line in lines:
+            line = line.strip()
+            if not line:
+                continue
+            req = None
+            try:
+                req = json.loads(line)
+                t0 = time.perf_counter()
+                if "cube" in req:
+                    cube = np.load(req["cube"])
+                    gt = np.zeros(cube.shape[:2], np.int64)
+                else:
+                    cube = gt = None  # registered .mat from --data_root
+                return "map", (req, t0, prepare(cube, gt))
+            except Exception as e:  # serve loop must survive bad requests
+                respond(_error(req, e))
+                return "error", None
+        return "stop", None
+
+    def answer(req, t0, scene, pred):
+        latency = time.perf_counter() - t0
+        out = req.get("out")
+        if out and out.endswith(".npy"):
+            np.save(out, pred)
+        elif out:
+            save_class_map(out, pred + 1, spec, rows=scene.rows,
+                           cols=scene.cols)
+        respond({"id": req.get("id"), "pixels": int(pred.shape[0]),
+                 "latency_s": latency, "out": out})
 
     if not args.no_warmup:
         t0 = time.perf_counter()
-        cube = np.zeros((spec.rows, spec.cols, spec.num_bands))
-        cube += np.random.default_rng(0).normal(
-            1000.0, 100.0, cube.shape)  # PCA needs non-degenerate input
-        classify(cube, np.zeros((spec.rows, spec.cols), np.int64))
+        scene = None
+        if primary:
+            cube = np.zeros((spec.rows, spec.cols, spec.num_bands))
+            cube += np.random.default_rng(0).normal(
+                1000.0, 100.0, cube.shape)  # PCA needs non-degenerate input
+            scene = prepare(cube, np.zeros((spec.rows, spec.cols), np.int64))
+        classify(scene)
         respond({"ready": True, "dataset": spec.name,
                  "warmup_s": time.perf_counter() - t0})
     else:
         respond({"ready": True, "dataset": spec.name})
 
-    for line in stdin:
-        line = line.strip()
-        if not line:
+    lines = iter(stdin) if primary else None
+    while True:
+        header, job = next_request(lines) if primary else (None, None)
+        header = broadcast_object(header, mesh)
+        if header == "stop":
+            break
+        if header == "error":
             continue
-        req = None
+        req, t0, scene = job if primary else (None, None, None)
         try:
-            req = json.loads(line)
-            t0 = time.perf_counter()
-            if "cube" in req:
-                cube = np.load(req["cube"])
-                gt = np.zeros(cube.shape[:2], np.int64)
-            else:
-                cube = gt = None  # registered .mat from --data_root
-            scene, pred = classify(cube, gt)
-            latency = time.perf_counter() - t0
-            out = req.get("out")
-            if out and out.endswith(".npy"):
-                np.save(out, pred)
-            elif out:
-                save_class_map(out, pred + 1, spec, rows=scene.rows,
-                               cols=scene.cols)
-            respond({"id": req.get("id"), "pixels": int(pred.shape[0]),
-                     "latency_s": latency, "out": out})
-        except Exception as e:  # serve loop must survive bad requests
-            respond({"id": (req.get("id") if isinstance(req, dict)
-                            else None), "error": f"{type(e).__name__}: {e}"})
+            scene, pred = classify(scene)
+        except Exception as e:
+            if ranks:
+                raise  # a fault inside a rank's map ends the world
+            respond(_error(req, e))
+            continue
+        if primary:
+            try:
+                answer(req, t0, scene, pred)
+            except Exception as e:  # the map is done on every rank
+                respond(_error(req, e))
+    barrier(mesh)
 
 
 if __name__ == "__main__":

@@ -40,6 +40,9 @@ which each rank writes its rows: ``x + 0 = x`` exactly, and besides
 A ring ``all_reduce`` hands every rank the same bits, so the replicated
 Adams, queues, bank and generators stay bitwise equal across ranks.
 
+Serving prepares each scene on rank 0 alone and hands it to every rank
+bitwise (:func:`broadcast_scene`); each rank then maps its strip.
+
 A single process (no ``torchrun`` environment) has a :class:`Mesh` of one
 rank with no process group, and every function here is then the
 identity.
@@ -446,6 +449,48 @@ def broadcast_object(obj, mesh: Mesh | None, src: int = 0):
         box, src=src,
         device=mesh.device if mesh.backend == "nccl" else None)
     return box[0]
+
+
+#: :func:`broadcast_scene`'s calls since the last ``reset()``: calls, bytes
+#: of the scenes' tensors and labels, host seconds of the tensors'
+#: broadcasts (the object broadcast before them waits for the source)
+SCENE_BROADCASTS = CollectiveCount()
+
+
+def broadcast_scene(scene, mesh: Mesh | None):
+    """Rank 0's prepared scene (``data/prep.PreparedScene``; None on
+    the other ranks) on every rank, bitwise: its spec, labels (a host
+    array), patch size and channels by :func:`broadcast_object`, its
+    padded PCA cube and spectra by ``dist.broadcast`` of device tensors
+    (NCCL, or gloo, which takes CUDA tensors for ``broadcast``) into
+    tensors on ``mesh.device``.  Counted in :data:`SCENE_BROADCASTS`.
+    The scene itself without a process group."""
+    from cmlpl_tpu_torch.data.prep import PreparedScene
+
+    if not is_distributed(mesh):
+        return scene
+    head = None
+    if mesh.rank == 0:
+        head = (scene.spec, scene.labels, scene.patch_size, scene.n_pc,
+                tuple(scene.padded_pca.shape), tuple(scene.spectra.shape))
+    spec, labels, patch_size, n_pc, cube_shape, spectra_shape = \
+        broadcast_object(head, mesh)
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        tensors = [t.to(mesh.device, torch.float32).contiguous()
+                   for t in (scene.padded_pca, scene.spectra)]
+    else:
+        tensors = [torch.empty(s, dtype=torch.float32, device=mesh.device)
+                   for s in (cube_shape, spectra_shape)]
+    for t in tensors:
+        dist.broadcast(t, src=0)
+    SCENE_BROADCASTS.seconds += time.perf_counter() - t0
+    SCENE_BROADCASTS.calls += 1
+    SCENE_BROADCASTS.bytes += sum(t.numel() * 4 for t in tensors) \
+        + labels.nbytes
+    return PreparedScene(spec=spec, padded_pca=tensors[0],
+                         spectra=tensors[1], labels=labels,
+                         patch_size=patch_size, n_pc=n_pc)
 
 
 def barrier(mesh: Mesh | None) -> None:

@@ -279,8 +279,10 @@ class ScenePredictor:
                 logits = dense_scene_logits(self.params, scene)
                 return logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
             r0, r1 = strip_rows(scene.rows, mesh.data_size, mesh.data)
-            preds = dense_strip_logits(self.params, scene, r0, r1).argmax(
-                dim=-1).to(torch.int32)
+            preds = torch.empty(0, dtype=torch.int32, device=scene.device)
+            if r1 > r0:  # fewer scene rows than ranks leave a rank none
+                preds = dense_strip_logits(self.params, scene, r0,
+                                           r1).argmax(dim=-1).to(torch.int32)
             return gather_rows(preds, mesh, r0 * scene.cols,
                                scene.num_pixels).cpu().numpy()
         device = scene.device

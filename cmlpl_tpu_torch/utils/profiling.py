@@ -21,6 +21,14 @@ import torch
 from torch.utils._pytree import tree_leaves
 
 
+#: seconds to wait after ``torch.profiler`` starts tracing the card and
+#: before the work it should see: CUPTI may drop the records of kernels
+#: launched in its first moments (``python -m
+#: cmlpl_tpu_torch.utils.profiler_check`` counts the sessions that lose
+#: some, with and without this wait)
+CUPTI_SETTLE_S = 0.1
+
+
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """Profile the enclosed block (host ops, and CUDA kernels where CUDA
@@ -32,6 +40,8 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
+        if torch.cuda.is_available():
+            time.sleep(CUPTI_SETTLE_S)
         yield prof
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}"

@@ -378,6 +378,44 @@ def task_raises(mesh, module, argv, cwd):
     return {"type": None, "msg": ""}
 
 
+def task_serve(mesh, predict_runs=(), serve_runs=()):
+    """Each argv of ``predict_runs`` (or a list of them, one a rank) given
+    to ``cli.predict.main``: its map and what it printed; each ``(argv,
+    stdin text)`` of ``serve_runs`` given to ``cli.serve.main``: all it
+    wrote to stdout, how far it read its stdin and its scene broadcasts;
+    then the tiny scene, prepared on rank 0 alone, through
+    ``core/mesh.broadcast_scene``."""
+    from cmlpl_tpu_torch.cli import predict, serve
+    from cmlpl_tpu_torch.core.mesh import SCENE_BROADCASTS, broadcast_scene
+
+    rank = 0 if mesh is None else mesh.rank
+    out = {"predict": [], "serve": []}
+    for argv in predict_runs:
+        if isinstance(argv[0], list):
+            argv = argv[rank]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            labels = predict.main(argv)
+        out["predict"].append({"labels": labels, "printed": buf.getvalue()})
+    for argv, text in serve_runs:
+        stdin, buf = io.StringIO(text), io.StringIO()
+        SCENE_BROADCASTS.reset()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv, stdin=stdin)
+        out["serve"].append({"stdout": buf.getvalue(),
+                             "stdin_read": stdin.tell(),
+                             "broadcasts": (SCENE_BROADCASTS.calls,
+                                            SCENE_BROADCASTS.bytes)})
+    SCENE_BROADCASTS.reset()
+    scene = broadcast_scene(tiny_scene()[0] if rank == 0 else None, mesh)
+    out["scene"] = {"padded_pca": scene.padded_pca, "spectra": scene.spectra,
+                    "labels": scene.labels, "spec": scene.spec,
+                    "patch_size": scene.patch_size, "n_pc": scene.n_pc,
+                    "broadcasts": (SCENE_BROADCASTS.calls,
+                                   SCENE_BROADCASTS.bytes)}
+    return out
+
+
 def task_init(mesh):
     """``initialize_multihost`` called again (idempotent) and the mesh."""
     return {"again": initialize_multihost(device="cpu"), "rank": mesh.rank,
@@ -394,7 +432,7 @@ TASKS = {"gather": task_gather, "steps": task_steps,
          "from_tree": task_from_tree, "map": task_map, "fused": task_fused,
          "cli": task_cli, "init": task_init, "many": task_many,
          "zoo": task_zoo, "zoo_from_tree": task_zoo_from_tree,
-         "dense": task_dense, "raises": task_raises}
+         "dense": task_dense, "raises": task_raises, "serve": task_serve}
 
 
 # -- the parent's side ------------------------------------------------------ #
