@@ -52,6 +52,7 @@ answers it as an error, as before.)
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -68,6 +69,7 @@ from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.inference import ScenePredictor
 from cmlpl_tpu_torch.eval.visualize import save_class_map
 from cmlpl_tpu_torch.registry import get_dataset
+from cmlpl_tpu_torch.utils.profiling import span
 
 
 def _error(req, e: Exception) -> dict:
@@ -103,9 +105,10 @@ def main(argv=None, stdin=None, stdout=None):
             # refused here, on rank 0: the map would fail on every rank
             raise ValueError(f"cube of shape {cube.shape}, want (rows, "
                              f"cols, {spec.num_bands}) for {spec.name}")
-        return prepare_scene(spec, root=args.data_root, cube=cube, gt=gt,
-                             patch_size=args.w, n_pc=args.n_PC,
-                             device=device)
+        with span("serve.prep"):
+            return prepare_scene(spec, root=args.data_root, cube=cube,
+                                 gt=gt, patch_size=args.w, n_pc=args.n_PC,
+                                 device=device)
 
     def classify(scene):
         """Rank 0's prepared scene (None on the others) on every rank, and
@@ -119,8 +122,9 @@ def main(argv=None, stdin=None, stdout=None):
                 predictor.model, params=predictor.params, patch_size=args.w,
                 cols=scene.cols, tile=args.val_batch_size,
                 gather=args.eval_gather, mesh=mesh)
-        pred = predictor(scene)
-        sync(device)
+        with span("serve.map"):
+            pred = predictor(scene)
+            sync(device)
         return scene, pred
 
     def respond(obj):
@@ -128,39 +132,43 @@ def main(argv=None, stdin=None, stdout=None):
             stdout.write(json.dumps(obj) + "\n")
             stdout.flush()
 
-    def next_request(lines):
-        """Rank 0: the next request's header and job: ("map", (request,
-        its start time, its prepared scene)), ("error", None) once it is
-        answered, or ("stop", None) at the end of stdin."""
-        for line in lines:
-            line = line.strip()
-            if not line:
-                continue
-            req = None
-            try:
-                req = json.loads(line)
-                t0 = time.perf_counter()
-                if "cube" in req:
+    def next_line(lines):
+        """Rank 0: the next non-blank request line, or None at the end of
+        stdin."""
+        return next((line for line in map(str.strip, lines) if line), None)
+
+    def take(line):
+        """Rank 0: the header and job of request ``line``: ("map",
+        (request, its start time, its prepared scene)), ("error", None)
+        once it is answered, or ("stop", None) for None."""
+        if line is None:
+            return "stop", None
+        req = None
+        try:
+            req = json.loads(line)
+            t0 = time.perf_counter()
+            if "cube" in req:
+                with span("serve.read"):
                     cube = np.load(req["cube"])
                     gt = np.zeros(cube.shape[:2], np.int64)
-                else:
-                    cube = gt = None  # registered .mat from --data_root
-                return "map", (req, t0, prepare(cube, gt))
-            except Exception as e:  # serve loop must survive bad requests
-                respond(_error(req, e))
-                return "error", None
-        return "stop", None
+            else:
+                cube = gt = None  # registered .mat from --data_root
+            return "map", (req, t0, prepare(cube, gt))
+        except Exception as e:  # serve loop must survive bad requests
+            respond(_error(req, e))
+            return "error", None
 
     def answer(req, t0, scene, pred):
-        latency = time.perf_counter() - t0
-        out = req.get("out")
-        if out and out.endswith(".npy"):
-            np.save(out, pred)
-        elif out:
-            save_class_map(out, pred + 1, spec, rows=scene.rows,
-                           cols=scene.cols)
-        respond({"id": req.get("id"), "pixels": int(pred.shape[0]),
-                 "latency_s": latency, "out": out})
+        with span("serve.write"):
+            latency = time.perf_counter() - t0
+            out = req.get("out")
+            if out and out.endswith(".npy"):
+                np.save(out, pred)
+            elif out:
+                save_class_map(out, pred + 1, spec, rows=scene.rows,
+                               cols=scene.cols)
+            respond({"id": req.get("id"), "pixels": int(pred.shape[0]),
+                     "latency_s": latency, "out": out})
 
     if not args.no_warmup:
         t0 = time.perf_counter()
@@ -178,25 +186,29 @@ def main(argv=None, stdin=None, stdout=None):
 
     lines = iter(stdin) if primary else None
     while True:
-        header, job = next_request(lines) if primary else (None, None)
-        header = broadcast_object(header, mesh)
-        if header == "stop":
-            break
-        if header == "error":
-            continue
-        req, t0, scene = job if primary else (None, None, None)
-        try:
-            scene, pred = classify(scene)
-        except Exception as e:
-            if ranks:
-                raise  # a fault inside a rank's map ends the world
-            respond(_error(req, e))
-            continue
-        if primary:
+        line = next_line(lines) if primary else None
+        # rank 0's request span, from its line to its response
+        with (span("serve.request") if line is not None
+              else contextlib.nullcontext()):
+            header, job = take(line) if primary else (None, None)
+            header = broadcast_object(header, mesh)
+            if header == "stop":
+                break
+            if header == "error":
+                continue
+            req, t0, scene = job if primary else (None, None, None)
             try:
-                answer(req, t0, scene, pred)
-            except Exception as e:  # the map is done on every rank
+                scene, pred = classify(scene)
+            except Exception as e:
+                if ranks:
+                    raise  # a fault inside a rank's map ends the world
                 respond(_error(req, e))
+                continue
+            if primary:
+                try:
+                    answer(req, t0, scene, pred)
+                except Exception as e:  # the map is done on every rank
+                    respond(_error(req, e))
     barrier(mesh)
 
 

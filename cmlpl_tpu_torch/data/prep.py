@@ -20,6 +20,7 @@ from cmlpl_tpu_torch.data.io import load_scene
 from cmlpl_tpu_torch.data.patches import pad_symmetric, patch_pad_width
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.registry import DatasetSpec, get_dataset
+from cmlpl_tpu_torch.utils.profiling import span
 
 
 def feature_normalize(X: np.ndarray, kind: int = 1) -> np.ndarray:
@@ -96,6 +97,9 @@ def prepare_scene(data_id, root: str = "./dataset", patch_size: int = 20,
     load cube -> PCA(n_pc) + z-score -> symmetric pad (patch source);
     z-score raw spectra; flatten labels.  The cube and spectra are placed
     on ``device`` (default: the CUDA card, see ``resolve_device``).
+    Under a profiler its parts are the spans ``prep.pca``,
+    ``prep.spectra``, ``prep.pad`` and ``prep.upload``
+    (``utils/profiling.span``).
     """
     device = resolve_device(device)
     spec = get_dataset(data_id)
@@ -107,17 +111,23 @@ def prepare_scene(data_id, root: str = "./dataset", patch_size: int = 20,
         spec = dataclasses.replace(spec, rows=rows, cols=cols)
 
     flat = cube.reshape(rows * cols, bands)
-    x_pca = feature_normalize(pca_norm(flat, n_pc), 1)
-    x_pca = x_pca.reshape(rows, cols, n_pc).astype(np.float32)
-    spectra = feature_normalize(flat, 1).astype(np.float32)
+    with span("prep.pca"):
+        x_pca = feature_normalize(pca_norm(flat, n_pc), 1)
+        x_pca = x_pca.reshape(rows, cols, n_pc).astype(np.float32)
+    with span("prep.spectra"):
+        spectra = feature_normalize(flat, 1).astype(np.float32)
 
-    hw = patch_pad_width(patch_size)
-    padded = pad_symmetric(x_pca, hw)
+    with span("prep.pad"):
+        padded = np.ascontiguousarray(pad_symmetric(
+            x_pca, patch_pad_width(patch_size)))
 
+    with span("prep.upload"):
+        padded_pca = torch.from_numpy(padded).to(device)
+        spectra = torch.from_numpy(spectra).to(device)
     return PreparedScene(
         spec=spec,
-        padded_pca=torch.from_numpy(np.ascontiguousarray(padded)).to(device),
-        spectra=torch.from_numpy(spectra).to(device),
+        padded_pca=padded_pca,
+        spectra=spectra,
         labels=np.asarray(gt).reshape(-1).astype(np.int32),
         patch_size=patch_size,
         n_pc=n_pc,

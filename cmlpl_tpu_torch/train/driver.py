@@ -36,6 +36,13 @@ order either way, and as in the JAX package.
 Metrics stay on the device until the call ends and then come back in one
 copy; the history is a list of dicts of floats, one per step.
 
+Under a profiler a call records the spans (``utils/profiling.span``)
+``train.call`` (its root), ``train.pool_gather``, one ``train.step`` a
+step with ``train.gather``, ``train.draws``, ``train.forward``,
+``train.backward``, ``train.adam`` and ``train.write`` inside, and
+``train.metrics``; none sits inside ``_draws`` or ``_losses``, which the
+exported programs trace.
+
 An exported training run (``utils/export.build_run_exported``) runs the
 same ``_draws`` and ``_losses`` as one program: ``train/functional.py``
 steps the state's tensors functionally, and a trainer names where its
@@ -85,6 +92,7 @@ from cmlpl_tpu_torch.ops.patch_gather import (check_gather_mesh,
                                               poolify_batches,
                                               resolve_train_gather)
 from cmlpl_tpu_torch.train.state import CMLPLConfig, NetState
+from cmlpl_tpu_torch.utils.profiling import span
 from cmlpl_tpu_torch.weights import init_basenet2_params, state_dict_from_jax
 
 
@@ -292,27 +300,34 @@ class EpochDriver:
         """One optimisation step on the labeled and unlabeled patches and
         spectra; returns its metrics as 0-d device tensors."""
         g = state.generator
-        d = self._draws(g, xp_l, x_l, xp_u, x_u, lab_y)
+        with span("train.draws"):
+            d = self._draws(g, xp_l, x_l, xp_u, x_u, lab_y)
         carry = self._carry(state)
-        loss, metrics, writes = self._losses(
-            Apply(torch.nn.ModuleDict(self._modules(state)), mesh=self.mesh),
-            d, lab_y, carry, epoch, batch_index)
+        with span("train.forward"):
+            loss, metrics, writes = self._losses(
+                Apply(torch.nn.ModuleDict(self._modules(state)),
+                      mesh=self.mesh),
+                d, lab_y, carry, epoch, batch_index)
         self._update(state, loss, *self._opts(state), mesh=self.mesh)
-        self._write(carry, writes)
+        with span("train.write"):
+            self._write(carry, writes)
         return metrics
 
     def _multi_step(self, ms: SeedStack, xp_l, x_l, xp_u, x_u, lab_y,
                     epoch: int, batch_index: int) -> dict:
         """One step of every seed of ``ms`` on seed-stacked inputs (S, B,
         ...); returns metrics stacked (S,)."""
-        draws = [self._draws(st.generator, *(a[i] for a in (
-            xp_l, x_l, xp_u, x_u, lab_y))) for i, st in enumerate(ms.states)]
-        # the seed axis next to the last (the channels of an NHWC patch):
-        # the vmapped convolutions fold it into their channels, and there
-        # a (B, H, W, S, C) patch is a channels-last (B, S*C, H, W) view,
-        # no copy, as the serial step's patches are channels-last
-        draws = {k: torch.stack([d[k] for d in draws], dim=-2)
-                 for k in draws[0]}
+        with span("train.draws"):
+            draws = [self._draws(st.generator, *(a[i] for a in (
+                xp_l, x_l, xp_u, x_u, lab_y)))
+                for i, st in enumerate(ms.states)]
+            # the seed axis next to the last (the channels of an NHWC
+            # patch): the vmapped convolutions fold it into their
+            # channels, and there a (B, H, W, S, C) patch is a
+            # channels-last (B, S*C, H, W) view, no copy, as the serial
+            # step's patches are channels-last
+            draws = {k: torch.stack([d[k] for d in draws], dim=-2)
+                     for k in draws[0]}
         seed_dims = {k: v.dim() - 2 for k, v in draws.items()}
         # a queue's tensors (its pointer is shared); a bank as it is
         carried = {k: (c.feats, c.probs) if isinstance(c, QueueState) else c
@@ -325,10 +340,13 @@ class EpochDriver:
             return self._losses(Apply(ms.modules, params), d, y, carry,
                                 epoch, batch_index)
 
-        loss, metrics, writes = vmap(one, in_dims=(0, seed_dims, 0, 0))(
-            ms.params, draws, lab_y, carried)
-        self._update(ms, loss.sum(), *ms.opts)
-        self._write(ms.carry, writes)
+        with span("train.forward"):
+            loss, metrics, writes = vmap(one, in_dims=(0, seed_dims, 0, 0))(
+                ms.params, draws, lab_y, carried)
+            loss = loss.sum()
+        self._update(ms, loss, *ms.opts)
+        with span("train.write"):
+            self._write(ms.carry, writes)
         return metrics
 
     @staticmethod
@@ -336,13 +354,15 @@ class EpochDriver:
         """ONE backward over ``loss``, the gradients summed over the data
         ranks of ``mesh`` (each holds its rows' share), then each Adam
         steps in the given order, and the state's step count advances."""
-        for opt in opts:
-            opt.zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_grads((p for opt in opts for group in opt.param_groups
-                          for p in group["params"]), mesh)
-        for opt in opts:
-            opt.step()
+        with span("train.backward"):
+            for opt in opts:
+                opt.zero_grad(set_to_none=True)
+            loss.backward()
+            all_reduce_grads((p for opt in opts for group in opt.param_groups
+                              for p in group["params"]), mesh)
+        with span("train.adam"):
+            for opt in opts:
+                opt.step()
         state.step += 1
 
     def _run(self, state, scene: PreparedScene, li, ly, ui, epochs,
@@ -352,65 +372,72 @@ class EpochDriver:
         (state, metrics stacked (E, N) on the device).  For a
         :class:`SeedStack` the arrays are (S, E, N, B), one row a seed, and
         the metrics (S, E, N)."""
-        cfg = self.config
-        dev = self.device
-        cast = self.cast
-        w, cols = cfg.patch_size, scene.cols
-        multi = isinstance(state, SeedStack)
-        if not multi:
-            li, ly, ui = (np.asarray(a)[None] for a in (li, ly, ui))
-        if cfg.gather_impl == "pool":
-            pool, li, ui = seed_pools(li, ui)
-            xp_src, x_src = gather_pool(
-                cast(scene.padded_pca), scene.spectra,
-                torch.from_numpy(pool).to(dev), cols=cols, w=w)
-            x_src = cast(x_src)
+        with span("train.call"):
+            cfg = self.config
+            dev = self.device
+            cast = self.cast
+            w, cols = cfg.patch_size, scene.cols
+            multi = isinstance(state, SeedStack)
+            if not multi:
+                li, ly, ui = (np.asarray(a)[None] for a in (li, ly, ui))
+            if cfg.gather_impl == "pool":
+                with span("train.pool_gather"):
+                    pool, li, ui = seed_pools(li, ui)
+                    xp_src, x_src = gather_pool(
+                        cast(scene.padded_pca), scene.spectra,
+                        torch.from_numpy(pool).to(dev), cols=cols, w=w)
+                    x_src = cast(x_src)
 
-            def gather_xp(src, pos):
-                return src.index_select(0, pos)
-        else:
-            xp_src = self._prep_cube(scene.padded_pca)
-            x_src = cast(scene.spectra)
+                def gather_xp(src, pos):
+                    return src.index_select(0, pos)
+            else:
+                xp_src = self._prep_cube(scene.padded_pca)
+                x_src = cast(scene.spectra)
 
-            def gather_xp(src, ids):
-                return cast(self._gather(src, ids, cols, w))
+                def gather_xp(src, ids):
+                    return cast(self._gather(src, ids, cols, w))
 
-        def gather_x(src, ids):
-            return src.index_select(0, ids)
+            def gather_x(src, ids):
+                return src.index_select(0, ids)
 
-        li, ui = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-                  for a in (li, ui))
-        ly = torch.from_numpy(np.asarray(ly, np.int64)).to(dev)
-        seeds = li.shape[0]
+            li, ui = (torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                      .to(dev) for a in (li, ui))
+            ly = torch.from_numpy(np.asarray(ly, np.int64)).to(dev)
+            seeds = li.shape[0]
 
-        def batch(gather, src, ids):
-            # the seeds' rows in one gather, then a leading seed axis
-            out = gather(src, ids.reshape(-1))
-            return out.view(seeds, -1, *out.shape[1:])
+            def batch(gather, src, ids):
+                # the seeds' rows in one gather, then a leading seed axis
+                out = gather(src, ids.reshape(-1))
+                return out.view(seeds, -1, *out.shape[1:])
 
-        rows = []
-        with compute_precision("float32"):
-            for e, epoch in enumerate(epochs):
-                row = []
-                for i in range(li.shape[2]):
-                    lab, unl = li[:, e, i], ui[:, e, i]
-                    inputs = (batch(gather_xp, xp_src, lab),
-                              batch(gather_x, x_src, lab),
-                              batch(gather_xp, xp_src, unl),
-                              batch(gather_x, x_src, unl), ly[:, e, i])
-                    if multi:
-                        row.append(self._multi_step(
-                            state, *inputs, epoch, first_batch + i))
-                    else:
-                        row.append(self._step(
-                            state, *(a[0] for a in inputs), epoch,
-                            first_batch + i))
-                rows.append(row)
-        metrics = {k: torch.stack([torch.stack([m[k] for m in row])
-                                   for row in rows]) for k in rows[0][0]}
-        if multi:
-            metrics = {k: v.movedim(-1, 0) for k, v in metrics.items()}
-        return state, metrics
+            rows = []
+            with compute_precision("float32"):
+                for e, epoch in enumerate(epochs):
+                    row = []
+                    for i in range(li.shape[2]):
+                        with span("train.step", epoch=epoch, batch=i):
+                            with span("train.gather"):
+                                lab, unl = li[:, e, i], ui[:, e, i]
+                                inputs = (batch(gather_xp, xp_src, lab),
+                                          batch(gather_x, x_src, lab),
+                                          batch(gather_xp, xp_src, unl),
+                                          batch(gather_x, x_src, unl),
+                                          ly[:, e, i])
+                            if multi:
+                                row.append(self._multi_step(
+                                    state, *inputs, epoch, first_batch + i))
+                            else:
+                                row.append(self._step(
+                                    state, *(a[0] for a in inputs), epoch,
+                                    first_batch + i))
+                    rows.append(row)
+            with span("train.metrics"):
+                metrics = {k: torch.stack([torch.stack([m[k] for m in row])
+                                           for row in rows])
+                           for k in rows[0][0]}
+                if multi:
+                    metrics = {k: v.movedim(-1, 0) for k, v in metrics.items()}
+            return state, metrics
 
     # ------------------------------------------------------------------ #
     def train_step(self, state, scene: PreparedScene, lab_idx, lab_y,

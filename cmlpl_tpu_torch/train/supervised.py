@@ -15,6 +15,11 @@ from the state's ``torch.Generator``, in that order.
 The batches are ``_schedule``'s, a copy of the JAX trainer's (numpy
 ``default_rng(seed)``), so both packages train on the same batches.
 
+Under a profiler (``utils/profiling.span``) ``new_state`` records
+``train.new_state``, and ``train_run`` ``train.call`` with one
+``train.step`` a step: ``train.gather``, ``train.forward``,
+``train.backward`` and ``train.adam`` inside.
+
 Over a ``mesh`` (``core/mesh.create_mesh``; the JAX trainer's GSPMD step
 with the batch on "data", ``cmlpl_tpu/train/supervised.py:221-239``)
 every rank gathers and augments the whole batch from its copy of the one
@@ -58,6 +63,7 @@ from cmlpl_tpu_torch.ops.patch_gather import (check_gather_mesh,
                                               make_train_gather,
                                               resolve_train_gather)
 from cmlpl_tpu_torch.train.driver import Apply
+from cmlpl_tpu_torch.utils.profiling import span
 from cmlpl_tpu_torch.weights import (init_zoo_params, state_dict_from_jax,
                                      supervised_state_from_jax,
                                      supervised_state_to_jax)
@@ -163,20 +169,23 @@ class SupervisedTrainer:
         """A state from the model's params and BN statistics in the JAX
         layout, a fresh Adam, the EMA teacher as a copy when
         ``ema_alpha > 0``, and a generator seeded with ``run_seed``."""
-        model, _ = build_model(self.name, self.spec, self.n_pc,
-                               self.patch_size,
-                               **({"tp": self.tp} if self.tp else {}))
-        model.load_state_dict(state_dict_from_jax(
-            tp_shard_tree(params, self.tp), batch_stats=batch_stats or None))
-        model = model.to(self.device).train()
-        ema = (copy.deepcopy(model).eval() if self.ema_alpha > 0
-               else None)
-        # torch's Adam defaults are optax.adam's: b1 0.9, b2 0.999,
-        # eps 1e-8 outside the square root, bias-corrected
-        return SupervisedState(
-            model=model, opt=torch.optim.Adam(model.parameters(), lr=self.lr),
-            generator=torch.Generator(self.device).manual_seed(run_seed),
-            ema=ema)
+        with span("train.new_state"):
+            model, _ = build_model(self.name, self.spec, self.n_pc,
+                                   self.patch_size,
+                                   **({"tp": self.tp} if self.tp else {}))
+            model.load_state_dict(state_dict_from_jax(
+                tp_shard_tree(params, self.tp),
+                batch_stats=batch_stats or None))
+            model = model.to(self.device).train()
+            ema = (copy.deepcopy(model).eval() if self.ema_alpha > 0
+                   else None)
+            # torch's Adam defaults are optax.adam's: b1 0.9, b2 0.999,
+            # eps 1e-8 outside the square root, bias-corrected
+            return SupervisedState(
+                model=model,
+                opt=torch.optim.Adam(model.parameters(), lr=self.lr),
+                generator=torch.Generator(self.device).manual_seed(run_seed),
+                ema=ema)
 
     def init_state(self, seed) -> SupervisedState:
         """A fresh state from ``seed`` (an int or a sequence of ints, as
@@ -248,15 +257,18 @@ class SupervisedTrainer:
         g = state.generator
         if self.augment:
             xp = radiation_noise(g, random_rot90(g, random_flip(g, xp)))
-        apply = Apply(torch.nn.ModuleDict({"model": state.model}),
-                      mesh=self.mesh)
-        out = self._apply(functools.partial(apply, "model"), xp, x, g)
-        logits = out[0] if self.entry.returns_feature else out
-        loss = cross_entropy(logits, y)
-        state.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_grads(state.model.parameters(), self.mesh)
-        state.opt.step()
+        with span("train.forward"):
+            apply = Apply(torch.nn.ModuleDict({"model": state.model}),
+                          mesh=self.mesh)
+            out = self._apply(functools.partial(apply, "model"), xp, x, g)
+            logits = out[0] if self.entry.returns_feature else out
+            loss = cross_entropy(logits, y)
+        with span("train.backward"):
+            state.opt.zero_grad(set_to_none=True)
+            loss.backward()
+            all_reduce_grads(state.model.parameters(), self.mesh)
+        with span("train.adam"):
+            state.opt.step()
         state.step += 1
         if state.ema is not None:
             weight_ema(_tensors(state.model), _tensors(state.ema),
@@ -270,22 +282,26 @@ class SupervisedTrainer:
         """Steps over stacked (T, B) pixel ids and labels; returns (state,
         metrics stacked (T,) on the device).  TF32 stays off: the zoo is
         f32."""
-        dev = self.device
-        cube = self._prep_cube(scene.padded_pca)
-        li = torch.from_numpy(np.ascontiguousarray(lab_idx, np.int32)).to(dev)
-        ly = torch.from_numpy(np.asarray(lab_y, np.int64)).to(dev)
-        state.model.train()
-        rows = []
-        with compute_precision("float32"):
-            for i in range(li.shape[0]):
-                ids = li[i]
-                xp = self._gather(cube, ids, scene.cols,
-                                  self.patch_size).float()
-                rows.append(self._step(state, xp,
-                                       scene.spectra.index_select(0, ids),
-                                       ly[i]))
-        return state, {k: torch.stack([m[k] for m in rows])
-                       for k in rows[0]}
+        with span("train.call"):
+            dev = self.device
+            cube = self._prep_cube(scene.padded_pca)
+            li = torch.from_numpy(np.ascontiguousarray(lab_idx,
+                                                       np.int32)).to(dev)
+            ly = torch.from_numpy(np.asarray(lab_y, np.int64)).to(dev)
+            state.model.train()
+            rows = []
+            with compute_precision("float32"):
+                for i in range(li.shape[0]):
+                    with span("train.step"):
+                        with span("train.gather"):
+                            ids = li[i]
+                            xp = self._gather(cube, ids, scene.cols,
+                                              self.patch_size).float()
+                            x = scene.spectra.index_select(0, ids)
+                        rows.append(self._step(state, xp, x, ly[i]))
+            with span("train.metrics"):
+                return state, {k: torch.stack([m[k] for m in rows])
+                               for k in rows[0]}
 
     def train_step(self, state: SupervisedState, scene: PreparedScene,
                    lab_idx, lab_y):

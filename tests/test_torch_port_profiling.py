@@ -1,15 +1,14 @@
-"""``utils/profiling.py`` (``trace``, ``StepTimer``) and ``cli.train
+"""``utils/profiling.py`` (``trace``, ``span``) and ``cli.train
 --profile_dir`` on the CPU (``cmlpl_tpu/utils/profiling.py``,
 ``cmlpl_tpu/cli/train.py:111-119``).  The trace is a Chrome trace JSON,
 not a TensorBoard trace: the card's machine has no TensorBoard."""
 
 import json
 
-import pytest
 import torch
 
 from cmlpl_tpu_torch.cli import train as cli_train
-from cmlpl_tpu_torch.utils.profiling import StepTimer, synchronize, trace
+from cmlpl_tpu_torch.utils.profiling import SPAN_TID, span, trace
 from torch_port_threads import one_torch_thread  # noqa: F401
 
 
@@ -45,21 +44,26 @@ def test_cli_train_traces_its_first_run(tmp_path, capsys):
     assert any("Optimizer.step" in str(n) for n in names)
 
 
-def test_step_timer_reads_the_clock_after_a_synchronise(monkeypatch):
-    seen = []
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda device=None: seen.append(device))
-    timer = StepTimer()
-    timer.start()
-    dt = timer.stop(sync_on={"loss": torch.zeros(2)})
-    assert dt >= 0 and timer.times == [dt] and timer.mean == dt
-    assert seen == []           # a CPU tensor: nothing to wait for
-    fake = torch.zeros(1)
-    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    synchronize([fake])
-    assert seen == [fake.device]
-
-
-@pytest.mark.parametrize("tree", [None, [], {"a": 1}])
-def test_synchronize_without_a_tensor_does_nothing(tree):
-    synchronize(tree)
+def test_trace_writes_the_program_spans_on_a_row_of_their_own(tmp_path):
+    a = torch.randn(64, 64)
+    with trace(str(tmp_path / "prof")):
+        with span("outer", id=7):
+            with span("inner"):
+                (a @ a).sum()
+    events = _events(next((tmp_path / "prof").glob("trace_*.json")))
+    spans = {e["name"]: e for e in events if e.get("cat") == "program_span"}
+    assert set(spans) == {"outer", "inner"}
+    outer, inner = spans["outer"], spans["inner"]
+    assert outer["ph"] == inner["ph"] == "X"
+    assert outer["tid"] == inner["tid"] == SPAN_TID
+    assert outer["args"]["id"] == "7"
+    assert inner["args"]["parent"] == outer["args"]["index"]
+    assert {outer["args"]["root"], inner["args"]["root"]} == {
+        outer["args"]["index"]}
+    assert any(e.get("name") == "thread_name" and e.get("tid") == SPAN_TID
+               for e in events)
+    # on the trace's time base: the product's op lies inside both spans
+    mm = next(e for e in events if e.get("name") == "aten::mm")
+    for s in (outer, inner):
+        assert s["ts"] <= mm["ts"]
+        assert mm["ts"] + mm["dur"] <= s["ts"] + s["dur"]
