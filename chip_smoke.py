@@ -7,8 +7,12 @@ Builds the port's CUDA kernels from ``cmlpl_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card and times both, then drives
 the serving path at full width: BaseNet2 at PaviaU size (610x340x103
 scene, n_PC 60, w 20, 9 classes, tiles of 512), random weights from a
-seed.  ``cli.serve`` answers four JSON requests after its warm-up and
-``cli.predict`` maps the scene with the bf16 gather; then dense
+seed (kernel 3, ``column_sums_seq``, is held at the prep's pixel matrix
+(207,400 x 103), f32 and f64, bitwise its plain version and NumPy, at
+the end, in a process of its own).  ``cli.serve`` answers four JSON
+requests after its warm-up, each scene prepared on the card (kernel 3
+three times a scene), its maps bitwise those of the card's prep and
+tie-safe those of the host's; and ``cli.predict`` maps the scene with the bf16 gather; then dense
 whole-scene eval (``predict --eval_gather dense``, card vs CPU).  Then
 training: both kernels at the training shapes (the default run's pool,
 B = 128 a step); three steps of each trainer (CMLPL, CPS, CCT) on the
@@ -157,6 +161,9 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 # patch_gather_groups_kernel) holds this in its name, and no library
 # kernel does
 KERNEL_NEEDLE = "patch_gather_"
+# kernel 3 (csrc/column_sums.cu): the latency of one of the dependent adds
+# that bound it, assumed (the header's 4 cycles)
+ADD_CYCLES = 4
 FLOOR_SITE = (13, 5)                        # (w, C) of the B = 1 floor
 FLOOR_LAUNCHES = 100
 TIMING_ROUNDS = 3                           # passes over a map's tiles
@@ -330,7 +337,8 @@ def call_device_ms(fn, args_list):
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
-    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    return t.view({2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
 
 
 def tf32_flags() -> tuple:
@@ -774,6 +782,100 @@ def gather_times(wrapper, cube, id_list, cols: int,
             "plan": plan._asdict()}
 
 
+def sm_max_hz() -> float:
+    """The card's highest SM clock, in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def phase_column_sums(cube: np.ndarray, device) -> dict:
+    """Kernel 3 (``column_sums_seq``) at the device prep's shape, the
+    scene's pixel matrix (207,400 x 103 at PaviaU), in f32 and f64: its
+    sums, and its squared deviations from the columns' NumPy means, each
+    bitwise its plain version (``column_sums_plain``) on the card and
+    NumPy's ``sum(0)``; its times beside the plain version's, one
+    ``torch.sum(x, 0)``'s (the same sums in another order) and its bound,
+    the larger of the chain of dependent adds at ADD_CYCLES each at the
+    card's highest SM clock and the bytes read, from CUDA events.
+    Returns {"f32" / "f64": report}."""
+    from cmlpl_tpu_torch.ops.column_sums import (column_sums_plain,
+                                                 column_sums_seq)
+
+    flat = cube.reshape(-1, cube.shape[-1])
+    n = flat.shape[0]
+    hz = sm_max_hz()
+    report = {}
+    for name, dtype in (("f32", np.float32), ("f64", np.float64)):
+        xn = np.ascontiguousarray(flat, dtype=dtype)
+        centre = xn.mean(0)
+        dev = xn - centre
+        x = torch.from_numpy(xn).to(device)
+        c = torch.from_numpy(centre).to(device)
+        chain_ms = n * ADD_CYCLES / hz * 1e3
+        bytes_ms = xn.nbytes / HBM_BYTES_PER_S * 1e3
+        rep = {"rows": n, "cols": xn.shape[1], "bound_ms":
+               max(chain_ms, bytes_ms), "bound_by": "dependent adds"
+               if chain_ms > bytes_ms else "bytes", "chain_ms": chain_ms,
+               "bytes_ms": bytes_ms, "sm_max_hz": hz}
+        for label, args, want in (("sums", (x,), xn.sum(0)),
+                                  ("squares", (x, c), (dev * dev).sum(0))):
+            launches = column_sums_seq.launches
+            got = column_sums_seq(*args)
+            torch.cuda.synchronize()
+            require(column_sums_seq.launches == launches + 1,
+                    f"column_sums_seq {name} {label}: launches "
+                    f"{column_sums_seq.launches - launches}, want 1")
+            t0 = time.perf_counter()
+            plain = column_sums_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            require(got.dtype == plain.dtype and got.shape == plain.shape,
+                    f"column_sums_seq {name} {label}: shape/dtype")
+            require(torch.equal(bits(got), bits(plain)),
+                    f"column_sums_seq {name} {label}: not bitwise its plain "
+                    "version")
+            require(np.array_equal(got.cpu().numpy(), want),
+                    f"column_sums_seq {name} {label}: not bitwise NumPy's "
+                    "sum(0)")
+
+            def kernel():
+                return column_sums_seq(*args)
+
+            def library():
+                return torch.sum(args[0], 0)
+
+            launched = [()] * 20
+            ms = cuda_ms(kernel, launched, rounds=1)
+            rep[label] = {"ms": ms, "cycles_per_add": ms * 1e-3 * hz / n,
+                          "plain_ms": plain_ms,
+                          "library_ms": cuda_ms(library, launched, rounds=1)}
+            emit({"phase": "kernel_vs_plain", "kernel": "column_sums_seq",
+                  "case": f"{name} {label} ({n}, {xn.shape[1]})",
+                  "bitwise_equal": True, "bitwise_numpy": True})
+        # the kernel's headline: the plain sums, as the prep's first pass
+        report[name] = {"max_abs_err": 0.0, "ms": rep["sums"]["ms"],
+                        "plain_ms": rep["sums"]["plain_ms"],
+                        "library_ms": rep["sums"]["library_ms"], **rep}
+        emit({"phase": "kernel_timing", "kernel": f"column_sums_seq {name}",
+              **report[name]})
+    return report
+
+
+def run_column_sums_child() -> dict:
+    """:func:`phase_column_sums` on the synthetic PaviaU scene, in a
+    process of its own, after the smoke's other phases: run in the smoke's
+    process before its training phases (with or without its profiler
+    sessions), or in a process of its own at that point, it was followed
+    there by a profiler session of kernel 1's training pool (five
+    launches) that recorded no kernel at all on an H100."""
+    from cmlpl_tpu_torch.data.io import synthetic_scene
+
+    cube, _ = synthetic_scene(DATA_ID)
+    return phase_column_sums(cube, torch.device("cuda"))
+
+
 class ResponseLog(io.StringIO):
     """serve's stdout: records the f32 gather's launch count at each
     response line, so each request's launches can be read."""
@@ -811,6 +913,20 @@ def tie_safe_equal(got, want, logits_at, what: str) -> None:
         gaps = (top2[:, 0] - top2[:, 1]).cpu().numpy()
         require((gaps < 1e-5).all(),
                 f"{what}: {diff.size} pixels differ, gaps {gaps[:8]}")
+
+
+def hold_served(served, card_map, host_map, host_logits_at,
+                what: str) -> int:
+    """A map that ``serve`` answered, its scene prepared on the card, is
+    bitwise the map of the same weights on the card's prep of that scene
+    (``card_map``), and tie-safe the map on the host's prep (``host_map``,
+    ``host_logits_at`` its logits), whose PCA features are within one f32
+    step.  Returns the pixels where it differs from ``host_map``."""
+    require(np.array_equal(served, card_map),
+            f"{what}: not bitwise the map of the card's prep")
+    tie_safe_equal(served, host_map, host_logits_at,
+                   f"{what} vs the map of the host's prep")
+    return int((served != host_map).sum())
 
 
 def run_cli(main_fn, argv, counter_fn):
@@ -1184,8 +1300,14 @@ def phase_train(tmp, cube, tscene, counter_fn):
     Returns (its training launches, its net B OA and ms_per_step)."""
     from cmlpl_tpu_torch.cli import serve
     from cmlpl_tpu_torch.cli import train as cli_train
+    from cmlpl_tpu_torch.cli._common import logits_fn
+    from cmlpl_tpu_torch.data.prep import prepare_scene
+    from cmlpl_tpu_torch.eval.inference import ScenePredictor
+    from cmlpl_tpu_torch.eval.visualize import save_class_map
+    from cmlpl_tpu_torch.models.basenet import BaseNet2
     from cmlpl_tpu_torch.train.cmlpl import CMLPLTrainer
     from cmlpl_tpu_torch.train.state import CMLPLConfig
+    from cmlpl_tpu_torch.weights import load_params_npz, state_dict_from_jax
 
     (acc_b, acc_e), report = train_cli_run(cli_train.main, tmp, "cmlpl",
                                            counter_fn, ("net B", "net E"))
@@ -1201,29 +1323,49 @@ def phase_train(tmp, cube, tscene, counter_fn):
     window = profiled_window(CMLPLTrainer(CMLPLConfig(),
                                           device=tscene.device), tscene)
 
-    # serve one request with the written weights: the CLI's net B map
+    # serve one request with the written weights: their map on the host's
+    # prep is the CLI's net B map, and serve's (on the card's prep) is
+    # that map up to ties
     scene_npy = os.path.join(tmp, "paviau.npy")
     np.save(scene_npy, cube)
-    served_svg = os.path.join(tmp, "served_trained.svg")
+    weights = os.path.join(tmp, "cmlpl.npz")
+    served_npy = os.path.join(tmp, "served_trained.npy")
     stdout = io.StringIO()
     serve.main(["--dataID", str(DATA_ID), "--n_PC", str(N_PC), "--w", str(W),
-                "--val_batch_size", str(TILE), "--weights",
-                os.path.join(tmp, "cmlpl.npz"), "--data_root", tmp,
-                "--no_warmup"],
+                "--val_batch_size", str(TILE), "--weights", weights,
+                "--data_root", tmp, "--no_warmup"],
                stdin=io.StringIO(json.dumps({"id": "trained",
                                              "cube": scene_npy,
-                                             "out": served_svg}) + "\n"),
+                                             "out": served_npy}) + "\n"),
                stdout=stdout)
     response = json.loads(stdout.getvalue().splitlines()[-1])
     require("error" not in response, f"serve error {response}")
+    model = BaseNet2(num_features=cube.shape[-1], num_classes=9, n_pc=N_PC,
+                     patch_size=W)
+    model.load_state_dict(state_dict_from_jax(load_params_npz(weights)))
+    apply = logits_fn(model.to(tscene.device).eval())
+    card_scene = prepare_scene(DATA_ID, cube=cube, gt=np.zeros(
+        cube.shape[:2], np.int64), patch_size=W, n_pc=N_PC,
+        device=tscene.device, on_card=True)
+    host_map, card_map = (ScenePredictor(
+        apply, patch_size=W, cols=tscene.cols, tile=TILE,
+        gather="pallas")(sc) for sc in (tscene, card_scene))
+    host_svg = os.path.join(tmp, "weights_host_prep.svg")
+    save_class_map(host_svg, host_map + 1, DATA_ID, rows=tscene.rows,
+                   cols=tscene.cols)
     cli_svg = os.path.join(tmp, f"Experiment_{DATA_ID}", "label_5",
                            f"CMLPL_OA_{int(acc_b.oa * 10000)}.svg")
-    with open(cli_svg, "rb") as a, open(served_svg, "rb") as b:
-        require(a.read() == b.read(), "served map != the CLI's net B map")
+    with open(cli_svg, "rb") as a, open(host_svg, "rb") as b:
+        require(a.read() == b.read(),
+                "the written weights' map != the CLI's net B map")
+    served_vs_host = hold_served(np.load(served_npy), card_map, host_map,
+                                 tiled_logits(apply, tscene),
+                                 "served trained map")
 
     emit({"phase": "train", **report,
           "accuracy": {"net_b": accuracy(acc_b), "net_e": accuracy(acc_e)},
-          "served_map_equals_cli_map": True,
+          "served_map_equals_cli_map_up_to_ties": True,
+          "served_vs_cli_map_differing_pixels": served_vs_host,
           "serve_latency_s": response["latency_s"],
           "profiled_window": window,
           "note": "synthetic PaviaU-size scene substituted for the absent "
@@ -2126,8 +2268,16 @@ def phase_prep_train_serve(tmp, cube, gt, scene, counter_fn, device):
                stdout=stdout)
     response = json.loads(stdout.getvalue().splitlines()[-1])
     require("error" not in response, f"serve error {response}")
-    require(np.array_equal(np.load(os.path.join(tmp, "served.npy")),
-                           maps["b"]), "served map != predict's net B map")
+    model.load_state_dict(state_dict_from_jax(load_net_params(ck, "b")))
+    card_scene = prepare_scene(DATA_ID, cube=cube, gt=np.zeros(
+        cube.shape[:2], np.int64), patch_size=W, n_pc=N_PC, device=device,
+        on_card=True)
+    net_b = ScenePredictor(logits_fn(model), patch_size=W, cols=scene.cols,
+                           tile=TILE, gather="pallas")(card_scene)
+    served_vs_predict = hold_served(
+        np.load(os.path.join(tmp, "served.npy")), net_b, maps["b"],
+        tiled_logits(logits_fn(model), scene),
+        "serve --checkpoint_dir vs predict's net B map")
 
     # XP.npy of the 64x48 scene, in chunks, against the plain gather
     _, lines, _ = run_cli(sample_generation.main, [
@@ -2153,6 +2303,7 @@ def phase_prep_train_serve(tmp, cube, gt, scene, counter_fn, device):
           "checkpoint_map_equals_weights_map": True,
           "net_e_map_equals_scene_predictor": True,
           "serve_latency_s": response["latency_s"],
+          "served_vs_predict_differing_pixels": served_vs_predict,
           "xp_shape": list(xp.shape), "xp_chunks": chunks,
           "xp_equals_plain_gather": True,
           "note": "profiled run: its train_s includes the profiler"})
@@ -3963,7 +4114,8 @@ def shared_card_serve(mesh, cube, device, tmp, trainer, state) -> dict:
     default, kernel 1, with its warm-up, and kernel 2 under the
     profiler), rank 0's
     good-request labels held to the one-rank map of the same weights and
-    scene (bitwise; dense tie-safe); then ``predict --multihost
+    scene, prepared on the card as serve prepares it (bitwise; dense
+    tie-safe); then ``predict --multihost
     --checkpoint_dir`` of the 2-epoch run's checkpoint, its map on rank 0
     held bitwise to the one-rank ``predict``'s."""
     from cmlpl_tpu_torch.cli import predict
@@ -4019,9 +4171,11 @@ def shared_card_serve(mesh, cube, device, tmp, trainer, state) -> dict:
                          patch_size=W)
         model.load_state_dict(state_dict_from_jax(load_params_npz(weights)))
         model = model.to(device).eval()
+        # serve prepares the scene on the card, as here
         scene = prepare_scene(DATA_ID, cube=cube,
                               gt=np.zeros(cube.shape[:2], np.int64),
-                              patch_size=W, n_pc=N_PC, device=device)
+                              patch_size=W, n_pc=N_PC, device=device,
+                              on_card=True)
         for name in MH_SERVE:
             got = np.load(os.path.join(files, name, "good.npy"))
             gather = "pallas" if name == "auto" else name
@@ -4885,6 +5039,7 @@ def main() -> int:
     from cmlpl_tpu_torch.eval.metrics import cal_accuracy
     from cmlpl_tpu_torch.models.basenet import BaseNet2
     from cmlpl_tpu_torch.ops import _build
+    from cmlpl_tpu_torch.ops.column_sums import column_sums_seq
     from cmlpl_tpu_torch.ops.patch_gather import (WRAPPERS,
                                                   gather_patches_bf16,
                                                   gather_patches_f32)
@@ -4978,7 +5133,9 @@ def main() -> int:
         save_params_npz(weights, params)
         scene_npy = os.path.join(tmp, "paviau.npy")
         np.save(scene_npy, cube)
-        crop = cube[:300, :200]
+        # an f32 crop, as a .npy of radiance comes: the card's prep of
+        # each dtype runs on a request (the others are f64)
+        crop = cube[:300, :200].astype(np.float32)
         crop_npy = os.path.join(tmp, "crop.npy")
         np.save(crop_npy, crop)
         common = ["--dataID", str(DATA_ID), "--n_PC", str(N_PC), "--w",
@@ -4995,28 +5152,36 @@ def main() -> int:
                 {"id": "back", "cube": scene_npy,
                  "out": os.path.join(tmp, "map2.npy")}]
         stdin = io.StringIO("".join(json.dumps(r) + "\n" for r in reqs))
-        stdout = ResponseLog(lambda: gather_patches_f32.launches)
-        for wrapper in WRAPPERS:
+        stdout = ResponseLog(lambda: (gather_patches_f32.launches,
+                                      column_sums_seq.launches))
+        for wrapper in (*WRAPPERS, column_sums_seq):
             wrapper.launches = 0
         t0 = time.perf_counter()
         serve.main(common, stdin=stdin, stdout=stdout)
         serve_s = time.perf_counter() - t0
-        serve_launches = {w.__name__: w.launches for w in WRAPPERS}
+        serve_launches = {w.__name__: w.launches
+                          for w in (*WRAPPERS, column_sums_seq)}
         lines = [json.loads(s) for s in stdout.getvalue().splitlines()]
         require(len(lines) == 1 + len(reqs), f"serve answered {lines}")
         require(lines[0].get("ready") is True, f"serve not ready: {lines[0]}")
-        per_request = np.diff([0] + stdout.counts).tolist()
+        per_line = np.diff([(0, 0)] + stdout.counts, axis=0).T.tolist()
+        per_request, sums_per_request = per_line
         for line in lines[1:]:
             require("error" not in line, f"serve error: {line}")
         crop_tiles = -(-300 * 200 // TILE)
         require(per_request == [406, 406, 406, crop_tiles, 406],
                 f"f32 gather launches per map {per_request}")
+        # the card's prep: 3 column-sum passes a scene; the warm-up
+        # prepares an f32 and an f64 cube
+        require(sums_per_request == [6, 3, 3, 3, 3],
+                f"column_sums_seq launches per line {sums_per_request}")
         require(serve_launches["gather_patches_bf16"] == 0,
                 "serve launched the bf16 gather")
         emit({"phase": "serve", "warmup_s": lines[0]["warmup_s"],
               "responses": lines[1:], "latency_s":
               [ln["latency_s"] for ln in lines[1:]],
               "f32_gather_launches_per_map": per_request,
+              "column_sums_launches_per_line": sums_per_request,
               "launches": serve_launches, "wall_s": serve_s})
 
         served = np.load(reqs[0]["out"])
@@ -5027,17 +5192,22 @@ def main() -> int:
                 "the same scene served twice gave two maps")
         with open(reqs[1]["out"], "rb") as f:
             require(f.read(4) == b"<svg", "svg map")
-        plain_map = ScenePredictor(apply, patch_size=W, cols=scene.cols,
-                                   tile=TILE, gather="xla")(scene)
-        require(np.array_equal(served, plain_map),
-                "pallas map != plain-gather map on the card")
-        crop_scene = prepare_scene(DATA_ID, cube=crop,
-                                   gt=np.zeros(crop.shape[:2], np.int64),
-                                   patch_size=W, n_pc=N_PC, device=device)
-        crop_plain = ScenePredictor(apply, patch_size=W, cols=200, tile=TILE,
-                                    gather="xla")(crop_scene)
-        require(np.array_equal(np.load(reqs[2]["out"]), crop_plain),
-                "cropped pallas map != plain-gather map")
+        # the served maps (kernel 1) against the plain gather's, on the
+        # card's prep of their cubes and on the host's
+        served_vs_host = {}
+        for label, c, out in (("scene", cube, reqs[0]["out"]),
+                              ("f32 crop", crop, reqs[2]["out"])):
+            preps = {on_card: prepare_scene(
+                DATA_ID, cube=c, gt=np.zeros(c.shape[:2], np.int64),
+                patch_size=W, n_pc=N_PC, device=device, on_card=on_card)
+                for on_card in (True, False)}
+            plain = {on_card: ScenePredictor(
+                apply, patch_size=W, cols=c.shape[1], tile=TILE,
+                gather="xla")(sc) for on_card, sc in preps.items()}
+            served_vs_host[label] = hold_served(
+                np.load(out), plain[True], plain[False],
+                tiled_logits(apply, preps[False]),
+                f"served {label} (pallas) vs the plain gather's map")
 
         # a small input against the CPU reference (plain gather, f32)
         small_cube, small_gt = synthetic_scene(0)
@@ -5068,6 +5238,7 @@ def main() -> int:
                     f"{nm} card vs CPU: max diff "
                     f"{float((g_.cpu() - w_).abs().max())}")
         emit({"phase": "reference", "pallas_map_equals_plain_map": True,
+              "served_vs_host_prep_differing_pixels": served_vs_host,
               "card_map_vs_cpu_map_differing_pixels":
               int((card_small != cpu_small).sum()),
               "logits_max_abs_diff_card_vs_cpu":
@@ -5127,7 +5298,13 @@ def main() -> int:
                            n_pc=N_PC, device=device)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prepare_scene(DATA_ID, cube=cube, gt=gt, patch_size=W, n_pc=N_PC,
+                  device=device, on_card=True)
+    torch.cuda.synchronize()
+    prep_on_card_s = time.perf_counter() - t0
     emit({"phase": "breakdown", "map_s": map_s, "prep_s": prep_s,
+          "prep_on_card_s": prep_on_card_s,
           "gather_f32_ms_per_map": kernel_report["patch_gather_f32"]["ms"]
           * len(tiles),
           "forward_argmax_ms_per_map": fwd_ms * len(tiles),
@@ -5233,6 +5410,10 @@ def main() -> int:
     # one-rank NCCL world beside the run with no process group
     with tempfile.TemporaryDirectory() as tmp:
         world1 = phase_multihost_world1(tmp, cube, tscene, counter_fn)
+    # 11. kernel 3 at the prep's shape, in a process of its own, last
+    sums_report = finish_child(start_child(
+        os.path.join(child_tmp, "column_sums"), "run_column_sums_child",
+        nice=0))
 
     launches = {"patch_gather_f32": serve_launches["gather_patches_f32"]
                 + export["launches"],
@@ -5351,6 +5532,22 @@ def main() -> int:
                         "launches_train": launches_train[name],
                         "train_shapes": train_gather[name]
                         | fused["shapes"][name] | zoo_kernels[name]})
+    # kernel 3 on serve's path: its warm-up prepares an f32 and an f64
+    # cube (3 launches each), its requests the f64 scene but the f32 crop
+    sums_launches = {"f32": 3 + sums_per_request[3],
+                     "f64": 3 + sum(sums_per_request[i] for i in (1, 2, 4))}
+    require(sum(sums_launches.values()) == serve_launches["column_sums_seq"],
+            f"column_sums_seq launches {sums_launches}, "
+            f"{serve_launches['column_sums_seq']} in all")
+    for name, rep in sums_report.items():
+        kernels.append({"name": f"column_sums_seq_{name}", "route": "cuda",
+                        "source": "cmlpl_tpu_torch/csrc/column_sums.cu",
+                        "replaces": "none: the JAX package prepares a scene "
+                        "in host NumPy (cmlpl_tpu/data/prep.py)",
+                        "launches": sums_launches[name], **rep,
+                        "launches_by_path": {
+                            "serve's warm-up": 3,
+                            "serve, a request of this dtype": 3}})
     stop_watch.set()
     emit({"total_s": time.perf_counter() - t_start, "card": card,
           "host_mem_available_min_gib_at_s": memory_low})

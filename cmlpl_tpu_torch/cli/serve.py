@@ -17,6 +17,11 @@ Request line:  {"cube": "scene.npy", "out": "map.svg", "id": "r1"}
 Response line: {"id": "r1", "pixels": N, "latency_s": ..., "out": ...}
 A request that fails gets {"id": ..., "error": "..."} and the loop goes on.
 
+Each cube is prepared on the card (``prepare_scene(on_card=True)``: the
+raw cube's upload, then its PCA and z-scores there); the warm-up prepares
+an f32 and an f64 cube, so that each dtype's kernels are loaded before
+the first request.
+
 ``latency_s`` runs from reading the request to the map on the host, after
 a device synchronise.  A scene whose dims differ from the previous
 request's rebuilds the predictor for the new geometry.
@@ -108,7 +113,7 @@ def main(argv=None, stdin=None, stdout=None):
         with span("serve.prep"):
             return prepare_scene(spec, root=args.data_root, cube=cube,
                                  gt=gt, patch_size=args.w, n_pc=args.n_PC,
-                                 device=device)
+                                 device=device, on_card=True)
 
     def classify(scene):
         """Rank 0's prepared scene (None on the others) on every rank, and
@@ -177,7 +182,11 @@ def main(argv=None, stdin=None, stdout=None):
             cube = np.zeros((spec.rows, spec.cols, spec.num_bands))
             cube += np.random.default_rng(0).normal(
                 1000.0, 100.0, cube.shape)  # PCA needs non-degenerate input
-            scene = prepare(cube, np.zeros((spec.rows, spec.cols), np.int64))
+            gt = np.zeros((spec.rows, spec.cols), np.int64)
+            # requests' cubes come as f32 (a .npy) or f64, and on the card
+            # each dtype's prep has kernels of its own, loaded at first use
+            prepare(cube.astype(np.float32), gt)
+            scene = prepare(cube, gt)
         classify(scene)
         respond({"ready": True, "dataset": spec.name,
                  "warmup_s": time.perf_counter() - t0})

@@ -38,9 +38,13 @@ _I = ctypes.c_int
 # plan: path, group, rows_per_warp, grid; stream) -> cudaError_t
 _GATHER = ((_P, _P, _P, ctypes.c_int64, _I, _I, _I, _I, _I,
             _I, _I, _I, _I, _P), _I)
+# (x, centre or NULL, out, rows, cols, stream) -> cudaError_t
+_COLUMN_SUMS = ((_P, _P, _P, ctypes.c_int64, _I, _P), _I)
 #: C signature of every entry point: (argtypes, restype)
 SIGNATURES = {"cmlpl_patch_gather_f32": _GATHER,
-              "cmlpl_patch_gather_bf16": _GATHER}
+              "cmlpl_patch_gather_bf16": _GATHER,
+              "cmlpl_column_sums_seq_f32": _COLUMN_SUMS,
+              "cmlpl_column_sums_seq_f64": _COLUMN_SUMS}
 
 
 def sources() -> list[str]:

@@ -293,9 +293,10 @@ def test_c_prototypes_match_the_ctypes_signatures():
 
 
 def test_the_plan_fills_the_entry_points_arguments():
-    """The wrapper passes (cube, idx, out, batch, the cube's three dims,
-    cols, w), the plan's fields in order, then the stream."""
+    """The gather wrappers pass (cube, idx, out, batch, the cube's three
+    dims, cols, w), the plan's fields in order, then the stream."""
     plan = gather_plan(512, 9, 103, 4, SMS)
-    for argtypes, _ in _build.SIGNATURES.values():
+    for name in ("cmlpl_patch_gather_f32", "cmlpl_patch_gather_bf16"):
+        argtypes, _ = _build.SIGNATURES[name]
         assert len(argtypes) == 9 + len(plan) + 1
         assert argtypes[9:9 + len(plan)] == (ctypes.c_int,) * len(plan)

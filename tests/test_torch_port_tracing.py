@@ -178,8 +178,9 @@ def test_serve_request_records_its_parts(tmp_path):
     assert _serve(wpath, line + "\n")[-1]["id"] == "r1"
     spans = take_spans()
     roots = [s for s in spans if s.parent is None]
-    # the warm-up's prep and map, then the request
-    assert _names(roots) == ["serve.prep", "serve.map", "serve.request"]
+    # the warm-up's preps (an f32 and an f64 cube) and map, then the request
+    assert _names(roots) == ["serve.prep", "serve.prep", "serve.map",
+                             "serve.request"]
     req = roots[-1]
     parts = _children(spans, req)
     assert _names(parts) == ["serve.read", "serve.prep", "serve.map",
