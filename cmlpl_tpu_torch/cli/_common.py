@@ -5,7 +5,9 @@ The flags have the JAX package's names and defaults (reference
 ``train.py:355-380``), plus ``--device`` (the CUDA card unless asked for
 the CPU).  predict and serve read :func:`base_parser`: a BaseNet2 from
 ``--weights`` (a param npz in the JAX layout, :mod:`cmlpl_tpu_torch.weights`)
-or from the latest checkpoint of ``--checkpoint_dir``, net ``--net``.
+or from the latest checkpoint of ``--checkpoint_dir``, net ``--net``; or,
+with ``--model``, any model of the comparison zoo from ``--weights`` as
+``train_backbone --weights_out`` writes it (:func:`resolve_model`).
 train, train_cps and train_cct read :func:`train_parser`: its
 ``--weights_out`` writes the trained weights in that layout, and
 ``--checkpoint_dir`` holds the trainer states that ``--resume`` and
@@ -44,6 +46,8 @@ from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.data.splits import generate_splits, load_splits
 from cmlpl_tpu_torch.eval.inference import GATHERS, ScenePredictor
 from cmlpl_tpu_torch.models.basenet import BaseNet2
+from cmlpl_tpu_torch.models.zoo import ZOO
+from cmlpl_tpu_torch.models.zoo import build_model as build_zoo_model
 from cmlpl_tpu_torch.ops.patch_gather import TRAIN_GATHERS
 from cmlpl_tpu_torch.registry import get_dataset
 from cmlpl_tpu_torch.train.state import CMLPLConfig
@@ -51,7 +55,8 @@ from cmlpl_tpu_torch.utils.checkpoint import (load_net_params,
                                               read_checkpoint,
                                               save_checkpoint,
                                               state_from_checkpoint)
-from cmlpl_tpu_torch.weights import load_params_npz, state_dict_from_jax
+from cmlpl_tpu_torch.weights import (load_params_npz, state_dict_from_jax,
+                                     zoo_state_dict_from_jax)
 
 
 def _shared_parser() -> argparse.ArgumentParser:
@@ -89,7 +94,9 @@ def _map_source_flags(p: argparse.ArgumentParser,
     p.add_argument("--weights", type=str, default=None,
                    help="BaseNet2 params as a flat '<layer>/<leaf>' npz in "
                         "the JAX layout (what the training CLIs' "
-                        "--weights_out writes); or give --checkpoint_dir")
+                        "--weights_out writes; for a zoo --model, "
+                        "train_backbone's params and batch_stats); or give "
+                        "--checkpoint_dir")
     if checkpoint_dir:
         p.add_argument("--checkpoint_dir", type=str, default=None,
                        help="map with a net of the latest checkpoint here "
@@ -104,6 +111,12 @@ def base_parser() -> argparse.ArgumentParser:
     """The flags of predict and serve."""
     p = _shared_parser()
     _map_source_flags(p)
+    p.add_argument("--model", type=str, default="basenet2",
+                   choices=sorted(ZOO),
+                   help="the network of --weights: basenet2 (CMLPL's, the "
+                        "default) or any model of the comparison zoo, whose "
+                        "--w and --n_PC default to its own (DBDA: 9 and "
+                        "all bands), as in train_backbone")
     p.add_argument("--multihost", action="store_true",
                    help="join the torchrun world (MASTER_ADDR, MASTER_PORT, "
                         "RANK, WORLD_SIZE, LOCAL_RANK; NCCL between cards, "
@@ -344,35 +357,90 @@ def save_history(args, history) -> None:
     print(f"wrote {args.metrics_csv} ({len(history)} steps)")
 
 
-def build_model(args, spec, device, mesh=None) -> BaseNet2:
+def entry_shape(args, entry, spec) -> tuple[int, int]:
+    """(w, n_pc): ``--w`` and ``--n_PC`` where they differ from the
+    training CLIs' defaults (20, 60), else the entry's own; n_pc -1 is
+    all of ``spec``'s bands (``cmlpl_tpu/cli/train_backbone.py:51-56``)."""
+    w = args.w if args.w != 20 or entry.default_patch == 20 \
+        else entry.default_patch
+    n_pc = args.n_PC if args.n_PC != 60 or entry.default_n_pc == 60 \
+        else entry.default_n_pc
+    return w, spec.num_bands if n_pc == -1 else n_pc
+
+
+def resolve_model(args, spec):
+    """The zoo entry of predict's and serve's ``--model``, with ``--w``
+    and ``--n_PC`` set in ``args`` to the entry's own where they were left
+    at their defaults (:func:`entry_shape`; for basenet2 they stay as
+    given).  A zoo model other than basenet2 is read from ``--weights``
+    alone (a checkpoint of ``--checkpoint_dir`` holds CMLPL's BaseNet2s),
+    is refused ``--eval_gather dense`` (ValueError, as train_backbone
+    refuses it: the dense pass needs BaseNet2-shaped params), and a model
+    of all the bands (``default_n_pc`` -1: DBDA, SSRN, FDSSC) takes
+    ``--n_PC`` = the dataset's bands."""
+    entry = ZOO[args.model]
+    args.w, args.n_PC = entry_shape(args, entry, spec)
+    if args.model == "basenet2":
+        return entry
+    if args.checkpoint_dir:
+        raise SystemExit(f"--model {args.model} maps --weights alone: "
+                         "--checkpoint_dir holds CMLPL's BaseNet2s")
+    if args.eval_gather == "dense":
+        raise ValueError(f"--eval_gather dense maps BaseNet2 alone, not "
+                         f"--model {args.model}; use a tiled gather")
+    if entry.default_n_pc == -1 and args.n_PC != spec.num_bands:
+        raise SystemExit(f"--model {args.model} takes all {spec.num_bands} "
+                         f"bands of {spec.name}: --n_PC {args.n_PC} given")
+    return entry
+
+
+def build_model(args, spec, device, mesh=None) -> torch.nn.Module:
     """BaseNet2 for ``spec`` with the params of ``--weights`` or of net
     ``--net`` of ``--checkpoint_dir``'s latest checkpoint (exactly one of
-    the two), in eval mode.  Over ``mesh`` rank 0 alone reads the file
-    (the others may not see it) and broadcasts the params, or the error
-    it met, which every rank then raises."""
+    the two), in eval mode; with ``--model`` another zoo model, from the
+    ``{"params", "batch_stats"}`` of ``--weights`` (its BatchNorms then
+    use those running statistics).  Over ``mesh`` rank 0 alone reads the
+    file (the others may not see it) and broadcasts the params, or the
+    error it met, which every rank then raises."""
     if bool(args.weights) == bool(args.checkpoint_dir):
         raise SystemExit("give one of --weights and --checkpoint_dir"
                          + (", not both" if args.weights else ""))
+    name = getattr(args, "model", "basenet2")
     params = error = None
     if mesh is None or is_primary(mesh):
         try:
             params = (load_params_npz(args.weights) if args.weights else
                       load_net_params(args.checkpoint_dir, args.net))
+            if name != "basenet2" and "params" not in params:
+                raise ValueError(
+                    f"{args.weights} holds no params/ tree: --model {name} "
+                    "reads what train_backbone --weights_out writes")
         except Exception as e:  # every rank raises it, below
             error = e
     params, error = broadcast_object((params, error), mesh)
     if error is not None:
         raise error
-    model = BaseNet2(num_features=spec.num_bands, dropout=args.dropout,
-                     num_classes=spec.num_classes, n_pc=args.n_PC,
-                     patch_size=args.w, compute_dtype=args.compute_dtype)
-    model.load_state_dict(state_dict_from_jax(params))
+    if name == "basenet2":
+        model = BaseNet2(num_features=spec.num_bands, dropout=args.dropout,
+                         num_classes=spec.num_classes, n_pc=args.n_PC,
+                         patch_size=args.w, compute_dtype=args.compute_dtype)
+        model.load_state_dict(state_dict_from_jax(params))
+    else:
+        model, _ = build_zoo_model(name, spec, args.n_PC, args.w)
+        model.load_state_dict(zoo_state_dict_from_jax(name, params))
     return model.to(device).eval()
 
 
-def logits_fn(model: BaseNet2):
-    """``(xp, x) -> logits`` of a BaseNet2, for ``ScenePredictor``."""
-    return lambda xp, x: model(xp, x)[0]
+def logits_fn(model: torch.nn.Module, name: str = "basenet2"):
+    """``(xp, x) -> logits`` of a BaseNet2 or of zoo model ``name``, for
+    ``ScenePredictor``: a "patch" model takes no ``x``, and a model that
+    returns (logits, feature) gives its logits."""
+    entry = ZOO[name]
+    if entry.inputs == "dual":
+        return lambda xp, x: model(xp, x)[0]
+    if entry.returns_feature:
+        return lambda xp, x: model(xp)[0]
+    return lambda xp, x: model(xp)
 
 
 def sync(device) -> None:

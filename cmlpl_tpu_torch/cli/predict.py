@@ -1,13 +1,18 @@
-"""One-shot serving CLI: classify a whole scene with a trained BaseNet2.
+"""One-shot serving CLI: classify a whole scene with a trained BaseNet2
+(or zoo model).
 
     python -m cmlpl_tpu_torch.cli.predict --dataID 1 \
         --checkpoint_dir ./ckpt --net b --out map.svg
     python -m cmlpl_tpu_torch.cli.predict --dataID 1 --weights w.npz
+    python -m cmlpl_tpu_torch.cli.predict --dataID 1 --model dbda \
+        --weights dbda.npz
 
 Counterpart of ``cmlpl_tpu/cli/predict.py``: net ``--net`` of the latest
 checkpoint of ``--checkpoint_dir`` (the port's ``state.npz``, written by
 ``cli.train`` or ``cli.train_cps``), or ``--weights`` (a JAX-layout npz,
-see :mod:`cmlpl_tpu_torch.weights`).
+see :mod:`cmlpl_tpu_torch.weights`).  ``--model`` maps with any model of
+the comparison zoo from the ``--weights`` that ``train_backbone
+--weights_out`` wrote, as ``serve`` does.
 
 ``--multihost`` under ``torchrun`` (one process a card) maps the scene in
 one strip a rank, as the JAX CLI maps it over its local devices: rank 0
@@ -26,8 +31,8 @@ from __future__ import annotations
 import time
 
 from cmlpl_tpu_torch.cli._common import (base_parser, build_model, logits_fn,
-                                         report_accuracy, setup_runtime,
-                                         sync)
+                                         report_accuracy, resolve_model,
+                                         setup_runtime, sync)
 from cmlpl_tpu_torch.core.mesh import (broadcast_scene, create_mesh,
                                        is_primary)
 from cmlpl_tpu_torch.data.prep import prepare_scene
@@ -49,6 +54,7 @@ def main(argv=None):
     primary = mesh is None or is_primary(mesh)
 
     spec = get_dataset(args.dataID)
+    entry = resolve_model(args, spec)
     scene = None
     if primary:
         scene = prepare_scene(spec, root=args.data_root, patch_size=args.w,
@@ -56,9 +62,9 @@ def main(argv=None):
     scene = broadcast_scene(scene, mesh)
     model = build_model(args, spec, device, mesh)
     predictor = ScenePredictor(
-        logits_fn(model), params=model.state_dict(), patch_size=args.w,
-        cols=scene.cols, tile=args.val_batch_size, gather=args.eval_gather,
-        mesh=mesh)
+        logits_fn(model, args.model), params=model.state_dict(),
+        patch_size=args.w, cols=scene.cols, tile=args.val_batch_size,
+        gather=args.eval_gather, spectra=entry.inputs == "dual", mesh=mesh)
     t0 = time.perf_counter()
     pred = predictor(scene)
     sync(device)

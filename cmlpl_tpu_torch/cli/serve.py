@@ -1,11 +1,17 @@
-"""Persistent serving loop: load a trained BaseNet2 ONCE, classify many
-scenes.
+"""Persistent serving loop: load a trained BaseNet2 (or zoo model) ONCE,
+classify many scenes.
 
     python -m cmlpl_tpu_torch.cli.serve --dataID 1 --checkpoint_dir ./ckpt
     python -m cmlpl_tpu_torch.cli.serve --dataID 1 --weights w.npz
+    python -m cmlpl_tpu_torch.cli.serve --dataID 1 --model dbda \
+        --weights dbda.npz
 
 Counterpart of ``cmlpl_tpu/cli/serve.py``: net ``--net`` (b or e) of the
-latest checkpoint of ``--checkpoint_dir``, or ``--weights``.  Requests
+latest checkpoint of ``--checkpoint_dir``, or ``--weights``.  ``--model``
+serves any model of the comparison zoo from the ``--weights`` that
+``train_backbone --weights_out`` wrote, at its own ``--w`` and ``--n_PC``
+unless given (``_common.resolve_model``; DBDA: 9 x 9 patches of all the
+bands), through the same loop, prep and tiled map.  Requests
 stream in as JSON lines on stdin and results stream out as JSON lines on
 stdout.
 
@@ -35,8 +41,9 @@ write nothing to stdout (logs go to stderr), so a client reading
 request line rank 0 broadcasts a header, and every rank acts on it:
 
 - ``map``: the prepared scene is broadcast
-  (``core/mesh.broadcast_scene``), each rank maps its strip (of tiles,
-  or, dense, of scene rows) and the labels are gathered; rank 0 answers.
+  (``core/mesh.broadcast_scene``, the span ``serve.broadcast``), each
+  rank maps its strip (of tiles, or, dense, of scene rows) and the labels
+  are gathered; rank 0 answers.
   Its ``latency_s`` includes the broadcast.
 - ``error``: the request's JSON, its cube or its prep failed on rank 0
   (a cube that is not (rows, cols, the dataset's bands) is refused
@@ -65,10 +72,11 @@ import time
 import numpy as np
 
 from cmlpl_tpu_torch.cli._common import (base_parser, build_model, logits_fn,
-                                         setup_runtime, sync)
+                                         resolve_model, setup_runtime, sync)
 from cmlpl_tpu_torch.core.mesh import (barrier, broadcast_object,
                                        broadcast_scene, create_mesh,
-                                       is_distributed, is_primary)
+                                       is_distributed, is_multiprocess,
+                                       is_primary)
 from cmlpl_tpu_torch.data.prep import prepare_scene
 from cmlpl_tpu_torch.device import resolve_device
 from cmlpl_tpu_torch.eval.inference import ScenePredictor
@@ -94,15 +102,16 @@ def main(argv=None, stdin=None, stdout=None):
     device = resolve_device(args.device)
     mesh = create_mesh(device) if args.multihost else None
     # a world of one has no peer to fall out of step with
-    ranks = is_distributed(mesh) and mesh.size > 1
+    ranks = is_multiprocess(mesh)
     primary = mesh is None or is_primary(mesh)
 
     spec = get_dataset(args.dataID)
+    entry = resolve_model(args, spec)
     model = build_model(args, spec, device, mesh)
     predictor = ScenePredictor(
-        logits_fn(model), params=model.state_dict(), patch_size=args.w,
-        cols=spec.cols, tile=args.val_batch_size, gather=args.eval_gather,
-        mesh=mesh)
+        logits_fn(model, args.model), params=model.state_dict(),
+        patch_size=args.w, cols=spec.cols, tile=args.val_batch_size,
+        gather=args.eval_gather, spectra=entry.inputs == "dual", mesh=mesh)
 
     def prepare(cube, gt):
         if cube is not None and (cube.ndim != 3
@@ -118,7 +127,9 @@ def main(argv=None, stdin=None, stdout=None):
     def classify(scene):
         """Rank 0's prepared scene (None on the others) on every rank, and
         its map."""
-        scene = broadcast_scene(scene, mesh)
+        if is_distributed(mesh):
+            with span("serve.broadcast"):
+                scene = broadcast_scene(scene, mesh)
         # the tile decomposition depends on scene.cols: a geometry change
         # rebuilds the predictor
         nonlocal predictor
@@ -126,7 +137,8 @@ def main(argv=None, stdin=None, stdout=None):
             predictor = ScenePredictor(
                 predictor.model, params=predictor.params, patch_size=args.w,
                 cols=scene.cols, tile=args.val_batch_size,
-                gather=args.eval_gather, mesh=mesh)
+                gather=args.eval_gather, spectra=predictor.spectra,
+                mesh=mesh)
         with span("serve.map"):
             pred = predictor(scene)
             sync(device)

@@ -30,8 +30,9 @@ from __future__ import annotations
 import os
 import time
 
-from cmlpl_tpu_torch.cli._common import (build_scene, is_primary,
-                                         make_epoch_hook, maybe_resume,
+from cmlpl_tpu_torch.cli._common import (build_scene, entry_shape,
+                                         is_primary, make_epoch_hook,
+                                         maybe_resume,
                                          report_accuracy, run_resilient,
                                          save_final_checkpoint, save_history,
                                          save_path, scene_map, setup_runtime,
@@ -61,17 +62,6 @@ def parser():
                         "and map it too (reference WeightEMA_BN, "
                         "tools/models.py:155-164)")
     return p
-
-
-def entry_shape(args, entry, spec) -> tuple[int, int]:
-    """(w, n_pc): ``--w`` and ``--n_PC`` where they differ from the
-    training CLIs' defaults (20, 60), else the entry's own; n_pc -1 is
-    all of ``spec``'s bands (``cmlpl_tpu/cli/train_backbone.py:51-56``)."""
-    w = args.w if args.w != 20 or entry.default_patch == 20 \
-        else entry.default_patch
-    n_pc = args.n_PC if args.n_PC != 60 or entry.default_n_pc == 60 \
-        else entry.default_n_pc
-    return w, spec.num_bands if n_pc == -1 else n_pc
 
 
 def main(argv=None):

@@ -4,8 +4,10 @@ whole-scene evaluation (``dense_scene_logits``, ``:39-141``).
 
 Tiled: pixel ids are cut into tiles of ``tile`` pixels; each tile gathers
 its patches from the device-resident padded cube, runs the forward pass and
-argmaxes on the device.  The predictions stay on the device until one
-final (K,) int32 copy to the host.
+argmaxes on the device (the host's part of it is the span ``map.tile``,
+recorded only under a profiler: ``utils/profiling.span``).  The
+predictions stay on the device until one final (K,) int32 copy to the
+host.
 
 Dense: the conv stack runs once over the whole padded cube, with no gather
 at all.  It needs the weights, not a callable: ``ScenePredictor`` takes
@@ -46,6 +48,7 @@ from cmlpl_tpu_torch.data.prep import PreparedScene
 from cmlpl_tpu_torch.device import compute_precision
 from cmlpl_tpu_torch.ops.patch_gather import (gather_patches_bf16,
                                               gather_patches_f32)
+from cmlpl_tpu_torch.utils.profiling import span
 
 GATHERS = ("auto", "xla", "pallas", "pallas_bf16", "dense")
 
@@ -302,10 +305,11 @@ class ScenePredictor:
         idx = torch.from_numpy(idx).to(device)
         preds = torch.empty(hi - lo, dtype=torch.int32, device=device)
         for start in range(0, hi - lo, tile):
-            ids = idx[start:start + tile]
-            x = (gather_spectra(scene.spectra, ids) if self.spectra
-                 else None)
-            logits = self.model(gather(cube, ids), x)
-            preds[start:start + tile] = torch.argmax(logits, dim=-1)
+            with span("map.tile"):
+                ids = idx[start:start + tile]
+                x = (gather_spectra(scene.spectra, ids) if self.spectra
+                     else None)
+                logits = self.model(gather(cube, ids), x)
+                preds[start:start + tile] = torch.argmax(logits, dim=-1)
         preds = gather_rows(preds, mesh, lo, padded_k)
         return preds[:k].cpu().numpy()

@@ -21,6 +21,12 @@ the ``.npy`` outputs are bitwise the one-process outputs, and both ranks
 return.  ``core/mesh.broadcast_scene`` gives rank 1 a scene bitwise rank
 0's.
 
+``serve --multihost --model dbda`` (a zoo model of patches alone, from
+weights drawn as the benchmark draws them) maps a 12 x 12 cube bitwise
+as one process does; under a profiler each rank records one
+``serve.broadcast`` span a mapped request and one ``map.tile`` span a
+tile of its strip.
+
 Every two-rank case runs in one world (``torch_dist_worker.task_many``).
 """
 
@@ -46,7 +52,11 @@ from cmlpl_tpu_torch.data.io import synthetic_scene
 from cmlpl_tpu_torch.train import CMLPLTrainer
 from cmlpl_tpu_torch.train.state import CMLPLConfig
 from cmlpl_tpu_torch.utils.checkpoint import load_net_params, save_checkpoint
-from cmlpl_tpu_torch.weights import init_basenet2_params, save_params_npz
+from cmlpl_tpu_torch.weights import (init_basenet2_params, save_params_npz,
+                                     zoo_variables_to_jax)
+from portbench import scenes
+from portbench.drivers.serve_zoo import zoo_weights
+from portbench.reference import dbda as ref_dbda
 from torch_dist_worker import N_PC, W, run_ranks, task_serve, tiny_scene
 from torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -66,6 +76,9 @@ ERRORS = {"bad": "FileNotFoundError", "bands": "ValueError"}
 #: each request's pixels (None: an error)
 PIXELS_OF = {"good": PIXELS, "crop": 40 * 30, "row": 30, "back": PIXELS}
 TIMES = ("latency_s", "warmup_s")
+#: DBDA's requests: a 12 x 12 cube twice, 5 x 5 patches, 64 pixels a tile
+#: (on two ranks each maps two tiles of the 256 padded pixels)
+DBDA_W, DBDA_TILE, DBDA_REQUESTS = 5, 64, ("a", "b")
 
 
 def _source(tmp, source):
@@ -77,6 +90,18 @@ def _argv(tmp, source, gather, *extra):
     return ["--dataID", "0", "--n_PC", str(N_PC), "--w", str(W),
             "--val_batch_size", str(TILE), "--device", "cpu",
             "--eval_gather", gather, *_source(tmp, source), *extra]
+
+
+def _dbda_argv(tmp, *extra):
+    return ["--dataID", "0", "--model", "dbda", "--weights",
+            str(tmp / "dbda.npz"), "--w", str(DBDA_W), "--val_batch_size",
+            str(DBDA_TILE), "--device", "cpu", "--no_warmup", *extra]
+
+
+def _dbda_stdin(tmp):
+    return "".join(json.dumps({"id": k, "cube": str(tmp / "dbda_cube.npy"),
+                               "out": str(tmp / "serve_dbda" / f"{k}.npy")})
+                   + "\n" for k in DBDA_REQUESTS)
 
 
 def _stdin(tmp, gather):
@@ -107,30 +132,39 @@ def runs(tmp_path_factory):
     np.save(tmp / "crop.npy", cube[:40, :30])
     np.save(tmp / "bands.npy", cube[:, :, :102])
     np.save(tmp / "row.npy", cube[:1, :30])
-    for g in SERVE:
+    np.save(tmp / "dbda_cube.npy", cube[:12, :12])
+    save_params_npz(str(tmp / "dbda.npz"), zoo_variables_to_jax(
+        "dbda", zoo_weights(scenes.streams(7, 1)[0],
+                            ref_dbda.shapes(103, 9), "cpu")))
+    outs = [*SERVE, "dbda"]
+    for g in outs:
         os.makedirs(tmp / f"serve_{g}")
     one = task_serve(
         None,
         predict_runs=[_argv(tmp, s, g, "--out", str(tmp / f"one_{s}_{g}.svg"))
                       for s, g in CASES],
         serve_runs=[(_argv(tmp, "weights", g, *extra), _stdin(tmp, g))
-                    for g, extra in SERVE.items()])
-    for g in SERVE:
+                    for g, extra in SERVE.items()]
+        + [(_dbda_argv(tmp), _dbda_stdin(tmp))])
+    for g in outs:
         os.rename(tmp / f"serve_{g}", tmp / f"serve_{g}_one")
         os.makedirs(tmp / f"serve_{g}")
     predict_runs = [[_argv(tmp, s, g, "--multihost", "--out",
                            str(tmp / f"r{r}_{s}_{g}.svg")) for r in range(2)]
                     for s, g in CASES]
     serve_runs = [(_argv(tmp, "weights", g, "--multihost", *extra),
-                   _stdin(tmp, g)) for g, extra in SERVE.items()]
+                   _stdin(tmp, g)) for g, extra in SERVE.items()] + [
+        (_dbda_argv(tmp, "--multihost"), _dbda_stdin(tmp))]
     calls = [["serve", dict(predict_runs=predict_runs,
                             serve_runs=serve_runs)],
              ["raises", dict(module="predict", cwd=str(tmp), argv=_argv(
                  tmp, "weights", "xla", "--multihost", "--weights",
-                 str(tmp / "none.npz")))]]
+                 str(tmp / "none.npz")))],
+             ["serve_spans", dict(argv=_dbda_argv(tmp, "--multihost"),
+                                  text=_dbda_stdin(tmp))]]
     ranks = run_ranks("many", str(tmp / "ranks"), calls=calls)
     return dict(tmp=tmp, one=one, ranks=[r[0] for r in ranks],
-                raises=[r[1] for r in ranks])
+                raises=[r[1] for r in ranks], spans=[r[2] for r in ranks])
 
 
 @pytest.fixture(scope="module")
@@ -344,3 +378,25 @@ def test_a_weights_file_rank_0_cannot_read_fails_every_rank(runs):
     r0, r1 = runs["raises"]
     assert r0["type"] == r1["type"] == "FileNotFoundError"
     assert r0["msg"] == r1["msg"] and "none.npz" in r0["msg"]
+
+
+def test_serve_dbda_over_two_ranks_is_bitwise_the_one_process_map(runs):
+    tmp = runs["tmp"]
+    for k in DBDA_REQUESTS:
+        want = (tmp / "serve_dbda_one" / f"{k}.npy").read_bytes()
+        assert (tmp / "serve_dbda" / f"{k}.npy").read_bytes() == want
+    labels = np.load(tmp / "serve_dbda_one" / "a.npy")
+    assert labels.shape == (144,) and len(np.unique(labels)) > 1
+    got = _responses(runs["ranks"][0]["serve"][len(SERVE)]["stdout"])
+    assert [g.get("pixels") for g in got[1:]] == [144, 144]
+    assert runs["ranks"][1]["serve"][len(SERVE)]["stdout"] == ""
+
+
+def test_serve_records_a_broadcast_a_request_and_a_span_a_tile(runs):
+    # rank 0 alone reads the requests
+    assert runs["spans"][0]["serve.request"] == len(DBDA_REQUESTS)
+    assert "serve.request" not in runs["spans"][1]
+    for counts in runs["spans"]:
+        assert counts["serve.broadcast"] == len(DBDA_REQUESTS)
+        # 144 pixels padded to 256 over two ranks: two tiles a rank a map
+        assert counts["map.tile"] == 2 * len(DBDA_REQUESTS)

@@ -416,6 +416,24 @@ def task_serve(mesh, predict_runs=(), serve_runs=()):
     return out
 
 
+def task_serve_spans(mesh, argv, text):
+    """``cli.serve.main(argv)`` fed ``text`` inside a profiler session:
+    how many spans of each name it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cmlpl_tpu_torch.cli import serve
+    from cmlpl_tpu_torch.utils.profiling import take_spans
+
+    take_spans()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            profile(activities=[ProfilerActivity.CPU]):
+        serve.main(argv, stdin=io.StringIO(text))
+    counts: dict = {}
+    for s in take_spans():
+        counts[s.name] = counts.get(s.name, 0) + 1
+    return counts
+
+
 def task_init(mesh):
     """``initialize_multihost`` called again (idempotent) and the mesh."""
     return {"again": initialize_multihost(device="cpu"), "rank": mesh.rank,
@@ -432,7 +450,8 @@ TASKS = {"gather": task_gather, "steps": task_steps,
          "from_tree": task_from_tree, "map": task_map, "fused": task_fused,
          "cli": task_cli, "init": task_init, "many": task_many,
          "zoo": task_zoo, "zoo_from_tree": task_zoo_from_tree,
-         "dense": task_dense, "raises": task_raises, "serve": task_serve}
+         "dense": task_dense, "raises": task_raises, "serve": task_serve,
+         "serve_spans": task_serve_spans}
 
 
 # -- the parent's side ------------------------------------------------------ #
